@@ -17,16 +17,12 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
-import jax  # noqa: E402
-
-if os.environ.get("TINYNN_TPU_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["TINYNN_TPU_PLATFORM"])
-
 from tinynn_autograd_tpu.models import build_mnist_mlp  # noqa: E402
 from tinynn_autograd_tpu.nn.evaluator import AccEvaluator  # noqa: E402
 from tinynn_autograd_tpu.nn.losses import SoftmaxCrossEntropyLoss  # noqa: E402
 from tinynn_autograd_tpu.nn.model import Model  # noqa: E402
 from tinynn_autograd_tpu.nn import optimizer as opt  # noqa: E402
+from tinynn_autograd_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 from tinynn_autograd_tpu.utils.datasets import load_mnist, one_hot  # noqa: E402
 from tinynn_autograd_tpu.utils.seeder import random_seed  # noqa: E402
 
@@ -80,4 +76,6 @@ if __name__ == "__main__":
     parser.add_argument("--lr", default=1e-3, type=float)
     parser.add_argument("--batch_size", default=128, type=int)
     parser.add_argument("--seed", default=31, type=int)
-    main(parser.parse_args())
+    args = parser.parse_args()
+    enable_compile_cache()
+    main(args)

@@ -2,7 +2,7 @@
 
 Same flags (--num_ep/--data_dir/--lr/--batch_size/--seed, reference:
 run.py:97-103) and the same flagship MLP (784-200-100-70-30-10 Dense+ReLU,
-Adam, batch 128, reference: run.py:59-71), rebuilt on the TPU-native stack:
+Adam, batch 128, reference: run.py:59-71), rebuilt on the jitted stack:
 
 - default mode runs the FUSED jitted train step (forward + tape backward +
   optimizer as one XLA program, buffers donated); --eager runs the
@@ -13,6 +13,7 @@ Adam, batch 128, reference: run.py:59-71), rebuilt on the TPU-native stack:
   unavailable (zero-egress environments)
 
 Run:  python examples/mnist/run.py --num_ep 10
+      (JAX_PLATFORMS=cpu to run on the host instead of the accelerator)
 """
 
 import argparse
@@ -25,19 +26,13 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
-import jax  # noqa: E402
-
-if os.environ.get("TINYNN_TPU_PLATFORM"):
-    # e.g. TINYNN_TPU_PLATFORM=cpu to force the host backend even when a
-    # platform plugin force-registered itself
-    jax.config.update("jax_platforms", os.environ["TINYNN_TPU_PLATFORM"])
-
 from tinynn_autograd_tpu import Tensor  # noqa: E402
 from tinynn_autograd_tpu.models import build_mnist_cnn, build_mnist_mlp  # noqa: E402
 from tinynn_autograd_tpu.nn.evaluator import AccEvaluator  # noqa: E402
 from tinynn_autograd_tpu.nn.losses import SoftmaxCrossEntropyLoss  # noqa: E402
 from tinynn_autograd_tpu.nn.model import Model  # noqa: E402
 from tinynn_autograd_tpu.nn.optimizer import Adam  # noqa: E402
+from tinynn_autograd_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 from tinynn_autograd_tpu.utils.data_iterator import BatchIterator  # noqa: E402
 from tinynn_autograd_tpu.utils.datasets import load_mnist, one_hot  # noqa: E402
 from tinynn_autograd_tpu.utils.seeder import random_seed  # noqa: E402
@@ -84,8 +79,8 @@ def main(args):
 
     epoch_mode = args.dp <= 1 and not args.eager and args.accum <= 1
     if epoch_mode:
-        # TPU path: stage the dataset into HBM once; each epoch is ONE
-        # device dispatch (on-device shuffle + fused steps / megakernel)
+        # stage the dataset into device memory once; each epoch is ONE
+        # device dispatch (on-device shuffle + scanned fused steps)
         x_dev, y_dev = model.stage(train_x, train_y_oh)
 
     iterator = BatchIterator(batch_size=args.batch_size,
@@ -162,4 +157,6 @@ if __name__ == "__main__":
                         help="write a jax.profiler trace of epoch 1 here")
     parser.add_argument("--export", default="", type=str,
                         help="serialize the trained forward as StableHLO")
-    main(parser.parse_args())
+    args = parser.parse_args()
+    enable_compile_cache()
+    main(args)

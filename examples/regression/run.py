@@ -14,11 +14,6 @@ import numpy as np
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", ".."))
 
-import jax  # noqa: E402
-
-if os.environ.get("TINYNN_TPU_PLATFORM"):
-    jax.config.update("jax_platforms", os.environ["TINYNN_TPU_PLATFORM"])
-
 from tinynn_autograd_tpu.nn.evaluator import (  # noqa: E402
     EVEvaluator, MAEEvaluator, MSEEvaluator, R2Evaluator,
 )
@@ -27,6 +22,7 @@ from tinynn_autograd_tpu.nn.losses import HuberLoss, MAELoss, MSELoss  # noqa: E
 from tinynn_autograd_tpu.nn.model import Model  # noqa: E402
 from tinynn_autograd_tpu.nn.net import Net  # noqa: E402
 from tinynn_autograd_tpu.nn.optimizer import Adam  # noqa: E402
+from tinynn_autograd_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
 from tinynn_autograd_tpu.utils.seeder import random_seed  # noqa: E402
 
 LOSSES = {"mse": MSELoss, "mae": MAELoss, "huber": HuberLoss}
@@ -68,4 +64,6 @@ if __name__ == "__main__":
     parser.add_argument("--batch_size", default=128, type=int)
     parser.add_argument("--seed", default=31, type=int)
     parser.add_argument("--loss", default="mse", choices=tuple(LOSSES))
-    main(parser.parse_args())
+    args = parser.parse_args()
+    enable_compile_cache()
+    main(args)

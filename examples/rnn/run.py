@@ -6,7 +6,7 @@ remember marked values across the whole sequence). End-to-end on the tape
 (hand-written reverse-scan BPTT — no jax.grad anywhere). Usage::
 
     python examples/rnn/run.py --steps 1200 --cell lstm
-    TINYNN_TPU_PLATFORM=cpu python examples/rnn/run.py --cell gru
+    JAX_PLATFORMS=cpu python examples/rnn/run.py --cell gru
 """
 
 import argparse
@@ -33,19 +33,15 @@ def main():
 
     import numpy as np
 
-    if os.environ.get("TINYNN_TPU_PLATFORM"):
-        import jax
-
-        jax.config.update("jax_platforms",
-                          os.environ["TINYNN_TPU_PLATFORM"])
-
     from tinynn_autograd_tpu.core.tensor import Tensor
     from tinynn_autograd_tpu.models import build_rnn_classifier
     from tinynn_autograd_tpu.nn.losses import MSELoss
     from tinynn_autograd_tpu.nn.model import Model
     from tinynn_autograd_tpu.nn.optimizer import Adam
+    from tinynn_autograd_tpu.utils.compile_cache import enable_compile_cache
     from tinynn_autograd_tpu.utils.seeder import random_seed
 
+    enable_compile_cache()
     random_seed(args.seed)
     T = args.seq_len
     rng = np.random.RandomState(args.seed)

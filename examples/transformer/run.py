@@ -3,7 +3,7 @@ next-token on a synthetic deterministic grammar, end-to-end on the tape
 (hand-VJP attention — no jax.grad anywhere). Usage::
 
     python examples/transformer/run.py --steps 200
-    TINYNN_TPU_PLATFORM=cpu python examples/transformer/run.py   # force CPU
+    JAX_PLATFORMS=cpu python examples/transformer/run.py   # force CPU
     python examples/transformer/run.py --model llama --top_p 0.9 \
         --temperature 0.8   # llama family (RMSNorm+RoPE+GQA+SwiGLU),
                             # nucleus-sampled decode alongside greedy
@@ -47,19 +47,15 @@ def main():
 
     import numpy as np
 
-    if os.environ.get("TINYNN_TPU_PLATFORM"):
-        import jax
-
-        jax.config.update("jax_platforms",
-                          os.environ["TINYNN_TPU_PLATFORM"])
-
     from tinynn_autograd_tpu.core.tensor import Tensor
     from tinynn_autograd_tpu.models import build_tiny_llama, build_tiny_lm
     from tinynn_autograd_tpu.nn.losses import SoftmaxCrossEntropyLoss
     from tinynn_autograd_tpu.nn.model import Model
     from tinynn_autograd_tpu.nn.optimizer import Adam
+    from tinynn_autograd_tpu.utils.compile_cache import enable_compile_cache
     from tinynn_autograd_tpu.utils.seeder import random_seed
 
+    enable_compile_cache()
     random_seed(args.seed)
     V, T = args.vocab, args.seq_len
     if args.model == "llama":

@@ -1,14 +1,15 @@
 """Flash-attention kernel + primitive tests (VERDICT r3 item 1).
 
-The Pallas kernels run in interpret mode on CPU (same code path the TPU
-compiles); the XLA fallback is the exact-math twin. Oracles: float64 naive
-softmax attention, the existing tape composition (dot_/softmax_/dot_), and
-central finite differences through the primitive.
+The Triton-route Pallas kernels run in interpret mode on CPU (the same
+kernel bodies the GPU compiles); the XLA twin is the exact-math reference.
+Oracles: float64 naive softmax attention, the existing tape composition
+(dot_/softmax_/dot_), and central finite differences through the primitive.
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
 from tinynn_autograd_tpu.core.tensor import Tensor
@@ -49,11 +50,10 @@ def test_xla_forward_matches_naive(causal):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("t", [16, 256, 640])
 def test_pallas_interpret_matches_xla(causal, t):
-    """Interpret mode runs the EXACT kernel Mosaic compiles on TPU —
-    t=256 exercises the multi-block online-softmax recurrence and the
-    causal block-skip predicate; t=640 the round-5 whole-plane single
-    kernel on a length where a gridded tiling exists (128-tiles) but the
-    single-plane envelope check overrides it."""
+    """Interpret mode runs the kernel bodies the GPU compiles — t=256
+    exercises the multi-block online-softmax recurrence and the causal
+    loop bounds; t=640 a length that is not a power of two (padded to
+    whole tiles)."""
     q, k, v = _qkv(b=1, h=4, t=t, d=8, seed=1)
     scale = 0.3
     args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
@@ -181,10 +181,18 @@ def test_transformer_block_fused_matches_tape(causal):
             rtol=1e-4, atol=1e-5, err_msg=kname)
 
 
-def test_head_batch_is_divisor():
-    for bh in (1, 2, 6, 8, 256):
-        g = attention._pick_head_batch(bh, 128, 128, 64)
-        assert bh % g == 0 and 1 <= g <= bh
+@pytest.mark.parametrize("t,d", [(1, 8), (16, 64), (100, 64), (1024, 64),
+                                 (4096, 128), (640, 96)])
+def test_tiles_are_powers_of_two(t, d):
+    """Triton tiles: power-of-two edges of at least 16 (Triton's smallest
+    dot operand), never wider than the padded length needs."""
+    for tiles in (attention._fwd_tiles(t, t, d),
+                  attention._bwd_tiles(t, t, d)):
+        bq, bk, warps, stages = tiles
+        for edge in (bq, bk):
+            assert edge >= 16 and edge & (edge - 1) == 0
+            assert edge <= max(16, 2 * t)
+        assert warps in (4, 8) and stages >= 1
 
 
 def test_cross_attention_tq_ne_tk():
@@ -219,9 +227,11 @@ def test_cross_attention_tq_ne_tk():
                                    rtol=1e-4, atol=1e-5, err_msg=name)
 
 
-def test_cross_attention_pallas_interpret():
-    """The kernels themselves handle Tq != Tk (separate bq/bk grids)."""
-    b, h, tq, tk, d = 1, 2, 128, 256, 8
+@pytest.mark.parametrize("tq,tk", [(128, 256), (24, 40)])
+def test_cross_attention_pallas_interpret(tq, tk):
+    """The kernels themselves handle Tq != Tk, including lengths that are
+    not whole tiles (padded keys masked, padded query rows dropped)."""
+    b, h, d = 1, 2, 8
     rng = np.random.RandomState(12)
     q = jnp.asarray(rng.randn(b, h, tq, d).astype(np.float32))
     k = jnp.asarray(rng.randn(b, h, tk, d).astype(np.float32))
@@ -288,18 +298,19 @@ def test_dropout_primitive_matches_tape_twin_same_mask(impl, causal):
     rng = np.random.RandomState(14)
     do = rng.randn(*q.shape).astype(np.float32)
     scale = 1.0 / np.sqrt(d)
-    rate, seed = 0.4, 777
+    rate = 0.4
 
+    key = jax.random.PRNGKey(777)
+    seed = jax.random.bits(key, dtype=jnp.uint32)   # flash_attention_'s rule
     qt, kt, vt = (Tensor(x, requires_grad=True) for x in (q, k, v))
     out_f = ops.flash_attention_(qt, kt, vt, causal=causal, scale=scale,
                                  impl=impl, dropout_rate=rate,
-                                 dropout_rng=("pltpu_seed", seed))
+                                 dropout_rng=key)
     out_f.backward(Tensor(do))
 
     # tape twin with the same keep decisions applied post-softmax
-    keep = np.asarray(attention._tile_keep_mask(
-        seed, 0, 0, 0, b * h, t, t, t, t,
-        attention._keep_thresh(rate))).reshape(b, h, t, t)
+    keep = np.asarray(attention.plane_keep_mask(
+        seed, b * h, t, t, rate)).reshape(b, h, t, t)
     q2, k2, v2 = (Tensor(x, requires_grad=True) for x in (q, k, v))
     scores = (q2 @ k2.transpose((0, 1, 3, 2))) * scale
     if causal:
@@ -323,8 +334,7 @@ def test_dropout_statistics_and_seed_decorrelation():
     """Drop fraction tracks the rate; different seeds give different masks;
     the same seed replays identically; rate=0 is the exact no-op."""
     rate = 0.3
-    bits = np.asarray(attention._tile_keep_mask(
-        5, 0, 0, 0, 4, 64, 64, 64, 64, attention._keep_thresh(rate)))
+    bits = np.asarray(attention.plane_keep_mask(5, 4, 64, 64, rate))
     frac = 1.0 - bits.mean()
     assert abs(frac - rate) < 0.02, frac
 
@@ -344,24 +354,13 @@ def test_dropout_statistics_and_seed_decorrelation():
     np.testing.assert_array_equal(np.asarray(o0), np.asarray(o0r))
 
 
-# ------------------------------------------------- row-band direct kernels
-
-def test_band_routing_selection():
-    """Round-5 routing: whole plane when it fits; query row-bands with
-    the full key axis resident when only a band fits; gridded
-    online-softmax beyond. Backward bands only where measured to win
-    (non-causal, or causal at t >= 4096 — the gridded kernels' causal
-    tile skip beats the direct form at t=2048)."""
-    assert attention._pick_band_rows(2048, 2048, 64, 5) == 512
-    assert attention._pick_band_rows(4096, 4096, 64, 5) == 128
-    assert attention._pick_band_rows(8192, 8192, 64, 5) is None
-    assert attention._pick_band_rows(2048, 2050, 64, 5) is None  # unaligned
-
+# ------------------------------------------------------- long sequences
 
 @pytest.mark.parametrize("causal", [False, True])
-def test_band_fwd_interpret_matches_xla(causal):
-    """t=2048 routes the forward to the row-band direct-softmax kernel
-    (bq=512, whole key axis resident) — parity incl. dropout replay."""
+def test_long_fwd_interpret_matches_xla(causal):
+    """t=2048: 32 query blocks, each sweeping up to 32 key blocks (causal:
+    only the blocks at or below the diagonal) — parity incl. dropout
+    replay."""
     q, k, v = _qkv(b=1, h=2, t=2048, d=8, seed=21)
     args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     kw = dict(causal=causal, scale=0.35, dropout_rate=0.25,
@@ -375,9 +374,9 @@ def test_band_fwd_interpret_matches_xla(causal):
 
 
 @pytest.mark.parametrize("causal,t", [(False, 2048), (True, 4096)])
-def test_band_bwd_interpret_matches_xla(causal, t):
-    """The banded backward engages non-causal at t=2048 and causal at
-    t >= 4096 (measured routing) — dq/dk/dv parity incl. dropout."""
+def test_long_bwd_interpret_matches_xla(causal, t):
+    """dq/dk/dv parity incl. dropout at long lengths (the dK/dV programs
+    start their query sweep at the diagonal block when causal)."""
     q, k, v = _qkv(b=1, h=1, t=t, d=8, seed=22)
     rng = np.random.RandomState(23)
     do = rng.randn(*q.shape).astype(np.float32)
@@ -392,3 +391,146 @@ def test_band_bwd_interpret_matches_xla(causal, t):
     for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-4, atol=1e-4, err_msg=name)
+
+
+# -------------------------------------------- GQA, padding, dispatch
+
+@pytest.mark.parametrize("h,hkv", [(4, 2), (8, 2), (4, 1)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_gqa_interpret_matches_repeated_kv(h, hkv, causal):
+    """Native GQA in the kernels (K/V indexed per query group, dK/dV
+    summed over the group) against the XLA twin on explicitly repeated
+    K/V — forward and all three gradients, with dropout on."""
+    b, t, d = 2, 48, 16
+    rng = np.random.RandomState(31)
+    q = jnp.asarray(rng.randn(b, h, t, d).astype(np.float32))
+    k = jnp.asarray(rng.randn(b, hkv, t, d).astype(np.float32))
+    v = jnp.asarray(rng.randn(b, hkv, t, d).astype(np.float32))
+    do = jnp.asarray(rng.randn(b, h, t, d).astype(np.float32))
+    kw = dict(causal=causal, dropout_rate=0.2, dropout_seed=9)
+    rep = h // hkv
+    kr, vr = jnp.repeat(k, rep, axis=1), jnp.repeat(v, rep, axis=1)
+    o_r, lse_r = attention.mha_fwd(q, kr, vr, impl="xla", **kw)
+    o_p, lse_p = attention.mha_fwd(q, k, v, impl="pallas_interpret", **kw)
+    np.testing.assert_allclose(np.asarray(o_p), np.asarray(o_r),
+                               rtol=1e-5, atol=1e-6)
+    dq_r, dk_r, dv_r = attention.mha_bwd(q, kr, vr, o_r, lse_r, do,
+                                         impl="xla", **kw)
+    dq_p, dk_p, dv_p = attention.mha_bwd(q, k, v, o_p, lse_p, do,
+                                         impl="pallas_interpret", **kw)
+    fold = lambda g: g.reshape(b, hkv, rep, t, d).sum(axis=2)  # noqa: E731
+    np.testing.assert_allclose(np.asarray(dq_p), np.asarray(dq_r),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(dk_p), np.asarray(fold(dk_r)),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(dv_p), np.asarray(fold(dv_r)),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("t,d", [(5, 3), (33, 8), (70, 24), (129, 40)])
+def test_untileable_lengths_interpret_match_xla(t, d):
+    """Lengths and head dims that are not whole power-of-two tiles are
+    zero-padded by the wrappers: padded keys must be invisible and padded
+    query rows must not leak into dK/dV."""
+    for causal in (False, True):
+        q, k, v = _qkv(b=1, h=2, t=t, d=d, seed=t)
+        do = np.random.RandomState(t + 1).randn(*q.shape).astype(np.float32)
+        args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        o_x, lse_x = attention.mha_fwd(*args, causal=causal, impl="xla")
+        o_p, lse_p = attention.mha_fwd(*args, causal=causal,
+                                       impl="pallas_interpret")
+        np.testing.assert_allclose(np.asarray(o_p), np.asarray(o_x),
+                                   rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(np.asarray(lse_p), np.asarray(lse_x),
+                                   rtol=1e-5, atol=1e-6)
+        ref = attention.mha_bwd(*args, o_x, lse_x, jnp.asarray(do),
+                                causal=causal, impl="xla")
+        got = attention.mha_bwd(*args, o_x, lse_x, jnp.asarray(do),
+                                causal=causal, impl="pallas_interpret")
+        for a, b in zip(got, ref):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       rtol=1e-4, atol=1e-5)
+
+
+def test_kernels_lower_for_the_gpu():
+    """Every kernel (forward, dQ, dK/dV — with causal window, GQA and
+    dropout all on) lowers to Triton IR for the CUDA platform without a
+    GPU present: what the Triton route cannot express fails here."""
+    def step(q, k, v, do):
+        kw = dict(causal=True, impl="pallas", dropout_rate=0.1,
+                  dropout_seed=jnp.uint32(5), window=300)
+        o, lse = attention.mha_fwd(q, k, v, **kw)
+        return attention.mha_bwd(q, k, v, o, lse, do, **kw)
+
+    spec = jax.ShapeDtypeStruct
+    args = (spec((2, 8, 1024, 64), jnp.float32),
+            spec((2, 2, 1024, 64), jnp.float32),
+            spec((2, 2, 1024, 64), jnp.float32),
+            spec((2, 8, 1024, 64), jnp.float32))
+    text = jax.jit(step).trace(*args).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert text.count("__gpu$xla.gpu.triton") == 3
+
+
+def test_auto_dispatch_observes_platform_and_shape(monkeypatch):
+    """Auto dispatch: the kernels only on the GPU, only from the measured
+    crossover length, only for head dims they tile; an explicit impl or
+    the use_impl scope wins; unknown impls are rejected."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    t0 = attention._KERNEL_MIN_T
+    assert attention._resolve_impl(None, t0, 64) == "pallas"
+    assert attention._resolve_impl(None, t0 * 4, 128) == "pallas"
+    assert attention._resolve_impl(None, t0 - 1, 64) == "xla"
+    assert attention._resolve_impl(None, t0, 256) == "xla"
+    assert attention._resolve_impl("xla", t0, 64) == "xla"
+    with attention.use_impl("xla"):
+        assert attention._resolve_impl(None, t0, 64) == "xla"
+    assert attention._resolve_impl(None, t0, 64) == "pallas"
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert attention._resolve_impl(None, t0 * 4, 64) == "xla"
+    with pytest.raises(ValueError, match="impl"):
+        attention._resolve_impl("mosaic", t0, 64)
+
+
+@pytest.mark.parametrize("fwd_tiles,bwd_tiles", [
+    ((32, 16, 4, 3), (16, 32, 4, 2)),
+    ((16, 64, 4, 3), (64, 16, 4, 2)),
+    ((64, 32, 8, 2), (32, 64, 8, 2)),
+])
+def test_unequal_tiles_interpret_match_xla(monkeypatch, fwd_tiles,
+                                          bwd_tiles):
+    """Query and key tiles of different edges (the tile chooser may pick
+    them): causal lengths pad to a multiple of both, and the loop bounds
+    stay exact for the causal window and for dropout replay."""
+    monkeypatch.setattr(attention, "_fwd_tiles", lambda *a: fwd_tiles)
+    monkeypatch.setattr(attention, "_bwd_tiles", lambda *a: bwd_tiles)
+    q, k, v = _qkv(b=1, h=2, t=100, d=16, seed=41)
+    do = np.random.RandomState(42).randn(*q.shape).astype(np.float32)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for kw in (dict(causal=True, window=37, dropout_rate=0.2,
+                    dropout_seed=3), dict(causal=False)):
+        o_x, lse_x = attention.mha_fwd(*args, impl="xla", **kw)
+        o_p, lse_p = attention.mha_fwd(*args, impl="pallas_interpret", **kw)
+        np.testing.assert_allclose(np.asarray(o_p), np.asarray(o_x),
+                                   rtol=1e-5, atol=1e-6)
+        ref = attention.mha_bwd(*args, o_x, lse_x, jnp.asarray(do),
+                                impl="xla", **kw)
+        got = attention.mha_bwd(*args, o_x, lse_x, jnp.asarray(do),
+                                impl="pallas_interpret", **kw)
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       rtol=1e-4, atol=1e-5)
+
+
+def test_kernel_dots_state_their_precision():
+    """f32 operands: TF32x3 tensor-core passes on the GPU (f32-accurate),
+    exact HIGHEST in the CPU interpreter (which has no TF32x3); narrower
+    operands take the default."""
+    import jax
+
+    assert (attention._kernel_precision(jnp.float32, interpret=False)
+            == jax.lax.DotAlgorithmPreset.TF32_TF32_F32_X3)
+    assert (attention._kernel_precision(jnp.float32, interpret=True)
+            == jax.lax.Precision.HIGHEST)
+    assert attention._kernel_precision(jnp.bfloat16, interpret=False) is None

@@ -1,7 +1,7 @@
-"""Sliding-window (causal local) attention: banded-mask semantics across
-every kernel variant (gridded with tile skip, whole-plane, row-band, XLA
-fallback), the flash primitive's recompute backward, the block layers, TP,
-and windowed KV-cache decoding. Oracles: float64 banded naive attention
+"""Sliding-window (causal local) attention: banded-mask semantics in the
+Triton kernels (interpret mode; in-band loop bounds), the XLA twin, the
+flash primitive's recompute backward, the block layers, TP, and windowed
+KV-cache decoding. Oracles: float64 banded naive attention
 and the tape composition with an explicit band mask."""
 
 import numpy as np
@@ -96,20 +96,11 @@ def test_window_primitive_grads_match_banded_tape(monkeypatch):
                                    rtol=1e-4, atol=1e-6)
 
 
-def _force_gridded(monkeypatch):
-    """Shrink the tile edge and kill the resident-plane envelopes so the
-    multi-tile online-softmax kernels (with the window tile skip + DMA
-    clamp) run at CPU-testable lengths."""
-    monkeypatch.setattr(attention, "_BLOCK", 128)
-    monkeypatch.setattr(attention, "_SINGLE_VMEM_BUDGET", 1)
-
-
 @pytest.mark.parametrize("window", [64, 100, 128, 300])
-def test_gridded_window_interpret_matches_xla(monkeypatch, window):
-    """The gridded kernels' window tile skip + block-index DMA clamp
-    (t=512 over 128-edge tiles = 4x4 grid; windows both tile-aligned and
-    not). Forward o/lse AND the recompute backward dq/dk/dv."""
-    _force_gridded(monkeypatch)
+def test_gridded_window_interpret_matches_xla(window):
+    """The kernels' in-band loop bounds (t=512 over 64-edge tiles = an 8x8
+    tile grid; windows both tile-aligned and not). Forward o/lse AND the
+    recompute backward dq/dk/dv."""
     t = 512
     q, k, v = _qkv(b=1, h=2, t=t, d=8, seed=5)
     args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
@@ -133,9 +124,8 @@ def test_gridded_window_interpret_matches_xla(monkeypatch, window):
 
 @pytest.mark.parametrize("t", [256, 640])
 def test_resident_plane_window_interpret_matches_xla(t):
-    """Default dispatch at CPU-testable lengths: t=256 takes the
-    whole-plane single kernels, t=640 the single-plane envelope over a
-    gridded tiling — both mask the window in place."""
+    """A window wider than one tile: t=256 is whole tiles, t=640 is not a
+    power of two — both mask the band inside the visited tiles."""
     window = 96
     q, k, v = _qkv(b=1, h=2, t=t, d=8, seed=7)
     args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
@@ -154,11 +144,9 @@ def test_resident_plane_window_interpret_matches_xla(t):
                                    rtol=1e-4, atol=1e-5)
 
 
-def test_band_window_interpret_matches_xla(monkeypatch):
-    """The row-band kernels (whole key axis resident, banded queries)
-    with a window mask: kill only the single-plane envelope so the band
-    form engages at t=512."""
-    monkeypatch.setattr(attention, "_SINGLE_MAX_T", 0)
+def test_band_window_interpret_matches_xla():
+    """A window spanning several tiles (200 over 64-edge tiles): the
+    loops start mid-band and mask the partial tiles at both edges."""
     t, window = 512, 200
     q, k, v = _qkv(b=1, h=2, t=t, d=8, seed=9)
     args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
@@ -177,11 +165,10 @@ def test_band_window_interpret_matches_xla(monkeypatch):
                                    rtol=1e-4, atol=1e-5)
 
 
-def test_window_with_dropout_interpret_matches_xla(monkeypatch):
+def test_window_with_dropout_interpret_matches_xla():
     """Window + in-kernel dropout compose: the same hash masks replay on
-    the banded probabilities (XLA fallback and kernels agree bit-for-bit
-    on the keep decisions)."""
-    _force_gridded(monkeypatch)
+    the banded probabilities (XLA twin and kernels agree bit-for-bit on
+    the keep decisions)."""
     t, window = 256, 100
     q, k, v = _qkv(b=1, h=2, t=t, d=8, seed=11)
     args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
@@ -194,8 +181,8 @@ def test_window_with_dropout_interpret_matches_xla(monkeypatch):
 
 
 def test_gqa_window_composes():
-    """GQA + window: grouped kernel calls each apply the band; parity vs
-    repeated-KV with the same window."""
+    """GQA + window: the grouped twin applies the band to every query
+    head of a group; parity vs repeated-KV with the same window."""
     b, h, hkv, t, d = 1, 4, 2, 64, 8
     rng = np.random.RandomState(12)
     q = rng.randn(b, h, t, d).astype(np.float32)
@@ -389,14 +376,11 @@ def test_windowed_llama_generate_matches_full_forward():
     np.testing.assert_array_equal(out, ids)
 
 
-def test_band_backward_window_interpret_matches_xla(monkeypatch):
-    """The BANDED backward kernels' window masks (_dq_kernel_band /
-    _dkv_kernel_band): unreachable at CPU-testable lengths by default
-    (causal bands engage only at t >= _BAND_BWD_CAUSAL_MIN_T = 4096), so
-    lower the threshold — a mask bug here would otherwise ship past CI
-    as silent wrong gradients in t>=4096 causal-window training."""
-    monkeypatch.setattr(attention, "_SINGLE_MAX_T", 0)
-    monkeypatch.setattr(attention, "_BAND_BWD_CAUSAL_MIN_T", 0)
+def test_band_backward_window_interpret_matches_xla():
+    """The backward kernels' window bounds in both sweeps: dQ programs
+    start their key sweep at the band's lower edge, dK/dV programs stop
+    their query sweep at its upper edge — a bound off by one tile would
+    ship as silent wrong gradients in causal-window training."""
     t, window = 512, 200
     q, k, v = _qkv(b=1, h=2, t=t, d=8, seed=16)
     args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))

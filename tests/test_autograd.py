@@ -1,5 +1,5 @@
 """Autograd op contract: port of the reference value/grad assertions
-(reference: test/test_autograd.py) against the TPU-native tape engine,
+(reference: test/test_autograd.py) against the tape engine,
 plus regression tests for reference bugs we fixed (non-leading-axis reduce
 VJPs, scatter-add getitem) and for the single-visit tape walk."""
 

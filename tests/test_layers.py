@@ -328,7 +328,7 @@ def test_layer_norm_lazy_init_and_training():
 
     # scanned-epoch path too
     losses2 = np.asarray(model.train_epoch(x, y, batch_size=32,
-                                           shuffle=False, fused=False))
+                                           shuffle=False))
     assert np.isfinite(losses2).all()
 
 
@@ -521,8 +521,7 @@ def test_batch_norm_running_stats_update_in_fused_paths():
 
     # scanned-epoch tier: stats advance across a whole one-dispatch run
     m_epochs = build(11)
-    m_epochs.train_epochs(x, y, n_epochs=3, batch_size=32, shuffle=False,
-                          fused=False)
+    m_epochs.train_epochs(x, y, n_epochs=3, batch_size=32, shuffle=False)
     bn_s = m_epochs.net.layers[1]
     stats = np.asarray(bn_s.buffers["mean"])
     assert np.abs(stats).max() > 0.0  # moved off the 0-init
@@ -610,19 +609,3 @@ def test_eager_forward_buffer_updates_survive_fused_step():
     assert float(bn.buffers["count"]) == 2.0
     model.train_step(x, y)                      # must continue at 3
     assert float(bn.buffers["count"]) == 3.0
-
-
-def test_forced_fused_tiers_reject_buffer_carrying_nets():
-    """Review r3 finding: forced fused=True/'stream' bypasses the auto
-    tier's supports() checks and would silently freeze running stats."""
-    from tinynn_autograd_tpu.nn.layers import BatchNorm
-
-    random_seed(21)
-    net = Net([Dense(8, num_in=4), BatchNorm(), Dense(2, num_in=8)])
-    model = Model(net, SoftmaxCrossEntropyLoss(), Adam(lr=1e-2))
-    rng = np.random.RandomState(0)
-    x = rng.randn(16, 4).astype(np.float32)
-    y = np.eye(2, dtype=np.float32)[rng.randint(0, 2, 16)]
-    for forced in (True, "stream"):
-        with pytest.raises(ValueError, match="buffer-carrying"):
-            model.train_epochs(x, y, n_epochs=1, batch_size=8, fused=forced)

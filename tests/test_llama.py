@@ -464,9 +464,8 @@ def test_filter_logits_top_p_zero_keeps_argmax():
 
 
 def test_llama_one_dispatch_epochs_and_remat():
-    """Tier routing: the llama net trains through Model.train_epochs
-    (scanned one-dispatch tier — megakernel/streaming ineligible) and the
-    remat-built twin matches it step-for-step (Remat replays the block
+    """The llama net trains through Model.train_epochs (the scanned
+    one-dispatch epoch) and the remat-built twin matches it step-for-step (Remat replays the block
     exactly; same init seeds via the reset global stream)."""
     vocab, seq = 8, 10
     rng = np.random.RandomState(0)

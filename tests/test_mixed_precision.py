@@ -1,7 +1,7 @@
 """bf16 mixed-precision training (compute_dtype= on the matmul layers).
 
-Policy under test (the standard jmp/flax discipline, TPU-first: bf16 is
-the MXU's native input dtype and halves activation HBM traffic):
+Policy under test (the standard jmp/flax discipline: bf16 is the tensor
+cores' fast input dtype and halves activation memory traffic):
 - params, their gradients, and optimizer state stay f32 MASTER copies —
   the cast happens at the use site and astype_'s VJP casts the weight
   cotangent back to f32 (nn/layers.py _to_dtype);
@@ -9,8 +9,7 @@ the MXU's native input dtype and halves activation HBM traffic):
   compute_dtype;
 - norms (LayerNorm/RMSNorm), the attention core (softmax), and the loss
   run in f32 (losses._f32_logits upcasts sub-32-bit logits);
-- the Pallas epoch tiers (megakernel/streaming) decline mixed-precision
-  nets (their in-kernel math is f32) — the scanned tier traces the casts.
+- the scanned epoch traces the same casts as the single fused step.
 """
 
 import jax.numpy as jnp
@@ -149,7 +148,7 @@ def test_bf16_mlp_trains_scanned_epochs():
                           compute_dtype=BF16)
     model = Model(net, SoftmaxCrossEntropyLoss(), Adam(lr=1e-2))
     losses = model.train_epochs(x, y, n_epochs=3, batch_size=64,
-                                shuffle=False, fused="auto")
+                                shuffle=False)
     losses = np.asarray(losses).reshape(-1)
     assert losses[-1] < losses[0] * 0.5, losses
     # every master param stayed f32 through the jitted updates
@@ -182,22 +181,3 @@ def test_bf16_llama_builder_forward_dtype():
     out = net.forward(Tensor(x))
     # the head Dense runs in bf16; the loss is responsible for the upcast
     assert out.dtype == np.dtype(BF16)
-
-
-def test_fused_tiers_decline_mixed_precision():
-    from tinynn_autograd_tpu.ops import fused_epoch
-
-    seeder.random_seed(0)
-    net = Net([Dense(32, num_in=16, compute_dtype=BF16), ReLU(),
-               Dense(4, num_in=32, compute_dtype=BF16)])
-    net.init((64, 16))
-    opt = SGD(lr=0.1)
-    tree = net.params_tree()
-    assert not fused_epoch.supports(net, tree, opt)
-
-    model = Model(net, SoftmaxCrossEntropyLoss(), opt)
-    x, y = _blob_task(n=64)
-    with pytest.raises(ValueError, match="mixed-precision"):
-        model.train_epochs(x, y, n_epochs=1, batch_size=32, fused=True)
-    with pytest.raises(ValueError, match="mixed-precision"):
-        model.train_epochs(x, y, n_epochs=1, batch_size=32, fused="stream")

@@ -237,19 +237,6 @@ def test_clip_norm_noop_below_threshold():
                                rtol=1e-4)
 
 
-def test_clip_norm_declined_by_streaming_tier():
-    from tinynn_autograd_tpu.models import build_deep_mlp
-    from tinynn_autograd_tpu.ops import streaming_epoch
-
-    net = build_deep_mlp(num_in=128, depth=4, width=128, num_out=4,
-                         stacked=True)
-    net.init((8, 128))
-    params = net.params_tree()
-    assert streaming_epoch.supports(net, params, Adam(1e-3))
-    assert not streaming_epoch.supports(net, params,
-                                        Adam(1e-3, clip_norm=1.0))
-
-
 def test_adam_bf16_sr_converges_with_fused_step():
     import jax.numpy as jnp
 
@@ -296,7 +283,7 @@ def test_lion_matches_numpy_twin():
 
 def test_lion_trains_through_all_tiers():
     """Lion's single-slot sign rule runs in the fused step AND the
-    interpret-mode megakernel epoch (generic _step_leaf contract)."""
+    scanned one-dispatch epoch (generic _step_leaf contract)."""
     import jax.numpy as jnp
 
     from tinynn_autograd_tpu.models import build_mnist_mlp
@@ -319,7 +306,6 @@ def test_lion_trains_through_all_tiers():
     random_seed(7)
     m2 = Model(build_mnist_mlp(), SoftmaxCrossEntropyLoss(), Lion(3e-4))
     xd, yd = m2.stage(x, y)
-    losses = np.asarray(m2.train_epochs(xd, yd, n_epochs=3, batch_size=32,
-                                        fused=True))
+    losses = np.asarray(m2.train_epochs(xd, yd, n_epochs=3, batch_size=32))
     assert np.isfinite(losses).all()
     assert losses[-1, -1] < losses[0, 0]

@@ -192,152 +192,6 @@ def test_lazy_init_from_first_input():
     assert out.shape == (2, H)
 
 
-# --------------------------------------------- pallas recurrence kernels
-
-
-@pytest.mark.parametrize("reverse", [False, True])
-def test_lstm_pallas_kernel_matches_xla_path(reverse):
-    """The in-kernel recurrence (ops/recurrent_kernel.py, interpret mode
-    on CPU) must match the XLA-scan path: forward values and every
-    cotangent (x, wx, wh, b, h0, c0)."""
-    Bk, Tk, Dk, Hk = 8, 6, 4, 128  # B%8==0, H%128==0 (kernel tiling)
-    rng = np.random.default_rng(21)
-    x = _rand(rng, Bk, Tk, Dk)
-    wx = _rand(rng, Dk, 4 * Hk) * 0.3
-    wh = _rand(rng, Hk, 4 * Hk) * 0.3
-    b = _rand(rng, 1, 4 * Hk) * 0.1
-    h0 = _rand(rng, Bk, Hk) * 0.5
-    c0 = _rand(rng, Bk, Hk) * 0.5
-    cot = _rand(rng, Bk, Tk, Hk)
-
-    def run(impl):
-        tx, twx, twh, tb, th0, tc0 = (
-            Tensor(x, requires_grad=True), Tensor(wx, requires_grad=True),
-            Tensor(wh, requires_grad=True), Tensor(b, requires_grad=True),
-            Tensor(h0, requires_grad=True), Tensor(c0, requires_grad=True))
-        out = lstm_scan_(tx, twx, twh, tb, h0=th0, c0=tc0,
-                         reverse=reverse, impl=impl)
-        out.backward(Tensor(cot))
-        return (np.asarray(out.data),
-                [np.asarray(t.grad)
-                 for t in (tx, twx, twh, tb, th0, tc0)])
-
-    out_x, grads_x = run("xla")
-    out_p, grads_p = run("pallas_interpret")
-    np.testing.assert_allclose(out_p, out_x, rtol=1e-6, atol=1e-6)
-    for gp, gx in zip(grads_p, grads_x):
-        # in-kernel dot vs XLA matmul: float reassociation only
-        np.testing.assert_allclose(gp, gx, rtol=1e-5, atol=5e-6)
-
-
-@pytest.mark.parametrize("reverse", [False, True])
-def test_gru_pallas_kernel_matches_xla_path(reverse):
-    Bk, Tk, Dk, Hk = 8, 6, 4, 128
-    rng = np.random.default_rng(23)
-    x = _rand(rng, Bk, Tk, Dk)
-    wx = _rand(rng, Dk, 3 * Hk) * 0.3
-    wh = _rand(rng, Hk, 3 * Hk) * 0.3
-    b = _rand(rng, 1, 3 * Hk) * 0.1
-    h0 = _rand(rng, Bk, Hk) * 0.5
-    cot = _rand(rng, Bk, Tk, Hk)
-
-    def run(impl):
-        tx, twx, twh, tb, th0 = (
-            Tensor(x, requires_grad=True), Tensor(wx, requires_grad=True),
-            Tensor(wh, requires_grad=True), Tensor(b, requires_grad=True),
-            Tensor(h0, requires_grad=True))
-        out = gru_scan_(tx, twx, twh, tb, h0=th0,
-                        reverse=reverse, impl=impl)
-        out.backward(Tensor(cot))
-        return (np.asarray(out.data),
-                [np.asarray(t.grad) for t in (tx, twx, twh, tb, th0)])
-
-    out_x, grads_x = run("xla")
-    out_p, grads_p = run("pallas_interpret")
-    np.testing.assert_allclose(out_p, out_x, rtol=1e-6, atol=1e-6)
-    for gp, gx in zip(grads_p, grads_x):
-        np.testing.assert_allclose(gp, gx, rtol=1e-5, atol=5e-6)
-
-
-def test_lstm_pallas_kernel_multi_chunk_grid():
-    """T larger than one chunk: the scratch carry must flow across grid
-    steps in both kernels (forward h/c, backward dh/dc)."""
-    import tinynn_autograd_tpu.ops.recurrent_kernel as rk
-
-    Bk, Tk, Dk, Hk = 8, 12, 4, 128
-    # force a small chunk so the grid has several steps
-    orig = rk._VMEM_BUDGET
-    rk._VMEM_BUDGET = 2 * 3 * 11 * Bk * Hk * 4 + Hk * 4 * Hk * 4 + 4 * Bk * Hk * 4
-    try:
-        assert rk._pick_chunk(Tk, Bk, Hk, n_streams=11) < Tk
-        rng = np.random.default_rng(22)
-        x = _rand(rng, Bk, Tk, Dk)
-        wx = _rand(rng, Dk, 4 * Hk) * 0.3
-        wh = _rand(rng, Hk, 4 * Hk) * 0.3
-        b = _rand(rng, 1, 4 * Hk) * 0.1
-        cot = _rand(rng, Bk, Tk, Hk)
-
-        def run(impl):
-            tx, twx, twh, tb = (
-                Tensor(x, requires_grad=True),
-                Tensor(wx, requires_grad=True),
-                Tensor(wh, requires_grad=True),
-                Tensor(b, requires_grad=True))
-            out = lstm_scan_(tx, twx, twh, tb, impl=impl)
-            out.backward(Tensor(cot))
-            return (np.asarray(out.data),
-                    [np.asarray(t.grad) for t in (tx, twx, twh, tb)])
-
-        out_x, grads_x = run("xla")
-        out_p, grads_p = run("pallas_interpret")
-        np.testing.assert_allclose(out_p, out_x, rtol=1e-6, atol=1e-6)
-        for gp, gx in zip(grads_p, grads_x):
-            np.testing.assert_allclose(gp, gx, rtol=1e-5, atol=5e-6)
-    finally:
-        rk._VMEM_BUDGET = orig
-
-
-def test_gru_pallas_kernel_multi_chunk_grid():
-    """GRU twin of the LSTM multi-chunk test: dh must flow across grid
-    steps in the backward kernel."""
-    import tinynn_autograd_tpu.ops.recurrent_kernel as rk
-
-    Bk, Tk, Dk, Hk = 8, 12, 4, 128
-    orig = rk._VMEM_BUDGET
-    rk._VMEM_BUDGET = (2 * 3 * 12 * Bk * Hk * 4 + Hk * 4 * Hk * 4
-                       + 4 * Bk * Hk * 4)
-    try:
-        assert rk._pick_chunk(Tk, Bk, Hk, n_streams=12) < Tk
-        rng = np.random.default_rng(24)
-        x = _rand(rng, Bk, Tk, Dk)
-        wx = _rand(rng, Dk, 3 * Hk) * 0.3
-        wh = _rand(rng, Hk, 3 * Hk) * 0.3
-        b = _rand(rng, 1, 3 * Hk) * 0.1
-        cot = _rand(rng, Bk, Tk, Hk)
-
-        def run(impl):
-            tx, twx, twh, tb = (
-                Tensor(x, requires_grad=True),
-                Tensor(wx, requires_grad=True),
-                Tensor(wh, requires_grad=True),
-                Tensor(b, requires_grad=True))
-            out = gru_scan_(tx, twx, twh, tb, impl=impl)
-            out.backward(Tensor(cot))
-            return (np.asarray(out.data),
-                    [np.asarray(t.grad) for t in (tx, twx, twh, tb)])
-
-        out_x, grads_x = run("xla")
-        out_p, grads_p = run("pallas_interpret")
-        np.testing.assert_allclose(out_p, out_x, rtol=1e-6, atol=1e-6)
-        for gp, gx in zip(grads_p, grads_x):
-            # N(0,1) draws (larger magnitudes than the scaled LSTM test)
-            # accumulate visible reassociation drift across chunkings —
-            # relative error stays ~1e-6; gate at the hw-check's 1e-4
-            np.testing.assert_allclose(gp, gx, rtol=1e-4, atol=1e-5)
-    finally:
-        rk._VMEM_BUDGET = orig
-
-
 # ------------------------------------------------- reverse + bidirectional
 
 
@@ -468,19 +322,6 @@ def test_bidirectional_set_parameters_plain_dicts():
         np.testing.assert_array_equal(
             np.asarray(dst.layers[0].params[k].data),
             np.asarray(src.layers[0].params[k].data))
-
-
-def test_forced_pallas_impl_rejects_untileable_shapes():
-    """Forcing impl='pallas' on a shape the kernel cannot tile must raise
-    a clear ValueError, not a NoneType arithmetic crash."""
-    x, wx, wh, b = _params(4)  # H=6: not a multiple of 128
-    with pytest.raises(ValueError, match="cannot tile"):
-        lstm_scan_(Tensor(x), Tensor(wx), Tensor(wh), Tensor(b),
-                   impl="pallas")
-    x3, wx3, wh3, b3 = _params(3)
-    with pytest.raises(ValueError, match="cannot tile"):
-        gru_scan_(Tensor(x3), Tensor(wx3), Tensor(wh3), Tensor(b3),
-                  impl="pallas_interpret")
 
 
 def test_bidirectional_rejects_misconfigured_layers():
@@ -622,15 +463,14 @@ def test_recurrent_under_data_parallel_matches_single_device():
 
 
 def test_scanned_epoch_tier_handles_recurrent_nets():
-    """train_epochs must route recurrent nets to the scanned tier (the
-    megakernel/streaming tiers only admit their Dense-family bodies)."""
+    """train_epochs runs recurrent nets (a scan inside the scanned
+    epoch)."""
     seeder.random_seed(0)
     rng = np.random.default_rng(2)
     x = rng.standard_normal((64, 4, 3)).astype(np.float32)
     y = rng.standard_normal((64, 1)).astype(np.float32)
     model = Model(net=Net([layers.GRU(6, seed=41), layers.Dense(1, seed=42)]),
                   loss=losses.MSELoss(), optimizer=opt.SGD(lr=1e-2))
-    traces = model.train_epochs(x, y, n_epochs=2, batch_size=16,
-                                fused="auto")
+    traces = model.train_epochs(x, y, n_epochs=2, batch_size=16)
     assert traces.shape == (2, 4)
     assert np.isfinite(np.asarray(traces)).all()

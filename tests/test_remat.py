@@ -226,9 +226,8 @@ def test_remat_eval_is_passthrough():
 
 
 def test_remat_one_dispatch_epoch():
-    """train_epochs with a Remat model: the fused tiers decline the
-    wrapper (ops/fused_epoch.py supports()) and the scanned one-dispatch
-    epoch runs the remat step under lax.scan."""
+    """train_epochs with a Remat model: the scanned one-dispatch epoch
+    runs the remat step under lax.scan."""
     from tinynn_autograd_tpu.utils.seeder import random_seed as _rs
 
     _rs(17)

@@ -3,12 +3,10 @@
 - jit-cache coherence: mutating optimizer hyperparams after first compile
   recompiles instead of silently running the stale program (model.py
   ``_config_fingerprint``).
-- megakernel fallback retry: a transient build failure must NOT blacklist
-  the kernel kind for the Model's lifetime; deterministic failures must.
 - explicit init keys: ``seeder.scope`` / per-layer ``seed=`` pin draws
   independent of global draw order.
 - stochastic rounding guards: non-bf16 targets raise instead of silently
-  degrading; salt spaces are disjoint across kernel/leaf/bias paths.
+  degrading.
 - ExpertParallel a2a: drop stats accumulate across multiple MoE layers.
 """
 
@@ -82,61 +80,6 @@ def test_loss_swap_recompiles():
     assert abs(l_ce - l_mse) > 1e-3
 
 
-# --------------------------------------------- VERDICT #7: retryable fallback
-
-def _patch_mega(model, fail_times, exc):
-    """Make the 'mega' epoch-body build fail ``fail_times`` times, then
-    delegate to the scanned body. Returns the call-count list."""
-    calls = []
-    orig = model._make_epoch_body
-
-    def fake(n, n_steps, batch_size, shuffle, feat, label, kind, interpret):
-        if kind == "mega":
-            calls.append(1)
-            if len(calls) <= fail_times:
-                raise exc
-            kind = "scan"  # a working body under the mega key
-        return orig(n, n_steps, batch_size, shuffle, feat, label, kind,
-                    interpret)
-
-    model._make_epoch_body = fake
-    model._fused_ok = lambda: True
-    model._stream_ok = lambda: False
-    return calls
-
-
-def test_transient_mega_failure_retries_and_does_not_blacklist():
-    x, y = _xy(n=64)
-    m = _model()
-    calls = _patch_mega(m, fail_times=1, exc=RuntimeError("tunnel hiccup"))
-    losses = m.train_epochs(x, y, n_epochs=1, batch_size=16, shuffle=False)
-    assert np.all(np.isfinite(np.asarray(losses)))
-    assert len(calls) == 2  # failed once, retried, succeeded
-    assert "mega" not in getattr(m, "_broken_kinds", set())
-
-
-def test_deterministic_mega_failure_blacklists_without_retry():
-    x, y = _xy(n=64)
-    m = _model()
-    calls = _patch_mega(m, fail_times=99, exc=ValueError("bad lowering"))
-    with pytest.warns(RuntimeWarning, match="falling back"):
-        losses = m.train_epochs(x, y, n_epochs=1, batch_size=16,
-                                shuffle=False)
-    assert np.all(np.isfinite(np.asarray(losses)))
-    assert len(calls) == 1  # ValueError is deterministic: no retry
-    assert "mega" in m._broken_kinds
-
-
-def test_twice_transient_failure_blacklists():
-    x, y = _xy(n=64)
-    m = _model()
-    calls = _patch_mega(m, fail_times=99, exc=RuntimeError("down hard"))
-    with pytest.warns(RuntimeWarning, match="falling back"):
-        m.train_epochs(x, y, n_epochs=1, batch_size=16, shuffle=False)
-    assert len(calls) == 2  # one retry, then written off
-    assert "mega" in m._broken_kinds
-
-
 # ------------------------------------------------ VERDICT #9: explicit seeds
 
 def test_layer_seed_pins_draws_independent_of_global_order():
@@ -191,28 +134,6 @@ def test_stochastic_round_cast_rejects_non_bf16():
 
     with pytest.raises(NotImplementedError):
         stochastic_round_cast(jnp.ones((4, 4)), jnp.float16, 0)
-
-
-def test_sr_salt_spaces_are_disjoint():
-    """ADVICE r3: the streaming kernel's layer salts must not collide with
-    BaseOptimizer.update's leaf salts (same t, same shapes -> identical
-    per-element rounding bits). The kernel base offsets the space; the
-    bit streams for (leaf i=0) and (kernel layer 0) must differ."""
-    from tinynn_autograd_tpu.ops import streaming_epoch
-    from tinynn_autograd_tpu.ops.primitives import stochastic_round_cast
-
-    assert streaming_epoch.KERNEL_SALT_BASE != streaming_epoch.BIAS_SALT
-    x = jnp.linspace(0.1, 1.0, 256 * 8).reshape(8, 256) * 1.0001
-    t = jnp.int32(3)
-
-    def seed(salt, si=0):
-        return t * 1000003 + jnp.int32(salt) * 8191 + si
-
-    a = stochastic_round_cast(x, jnp.bfloat16, seed(0))
-    b = stochastic_round_cast(x, jnp.bfloat16,
-                              seed(streaming_epoch.KERNEL_SALT_BASE + 0))
-    assert not np.array_equal(np.asarray(a, np.float32),
-                              np.asarray(b, np.float32))
 
 
 # --------------------------------------- ADVICE: a2a stats across MoE layers

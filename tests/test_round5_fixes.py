@@ -151,39 +151,21 @@ def test_load_mnist_structural_corruption_raises(tmp_path):
 
 
 def test_attention_dispatch_single_kernel_crossover(monkeypatch):
-    """Round-5 ATTN_SHORT_PROBE dispatch rule: on TPU, auto picks Pallas at
-    t >= 1024 (gridded regime) OR t >= 512 when the whole [Tq, Tk] score
-    plane fits the single-kernel VMEM envelope (_single_plane_ok — covers
-    every 128-tileable t in [512, 1024]); XLA everywhere else (t <= 256
-    measured losses; untileable lengths)."""
-    from tinynn_autograd_tpu.ops import attention, kernels
+    """Dispatch rule: on the GPU, auto picks the Triton kernels from the
+    measured crossover length _KERNEL_MIN_T up — lengths that are not
+    whole tiles included (the wrappers pad them) — and the XLA twin below
+    it, for head dims past _HEAD_DIM_MAX, and off the GPU."""
+    import jax
 
-    monkeypatch.setattr(kernels, "_default_backend", lambda: "tpu")
-    monkeypatch.delenv("TINYNN_TPU_ATTN_IMPL", raising=False)
-    monkeypatch.delenv("TINYNN_TPU_DISABLE_PALLAS", raising=False)
-    assert attention._resolve_impl(None, 128) == "xla"
-    assert attention._resolve_impl(None, 256) == "xla"
-    assert attention._resolve_impl(None, 512) == "pallas"   # single regime
-    assert attention._resolve_impl(None, 640) == "pallas"   # single regime
-    assert attention._resolve_impl(None, 768) == "pallas"   # single regime
-    assert attention._resolve_impl(None, 520) == "xla"      # untileable
-    assert attention._resolve_impl(None, 1024) == "pallas"
-    assert attention._resolve_impl(None, 2048) == "pallas"  # gridded
-    # huge head_dim blows the single-kernel VMEM envelope below 1024
-    assert attention._resolve_impl(None, 640, d=2048) == "xla"
-    monkeypatch.setattr(kernels, "_default_backend", lambda: "cpu")
-    assert attention._resolve_impl(None, 512) == "xla"
+    from tinynn_autograd_tpu.ops import attention
 
-
-def test_single_plane_envelope():
-    """Eligibility bounds of the whole-plane kernels: measured-good shapes
-    inside, impossible planes outside."""
-    from tinynn_autograd_tpu.ops.attention import _single_plane_ok
-
-    assert _single_plane_ok(512, 512, 64, 8)       # measured 1.74x
-    assert _single_plane_ok(1024, 1024, 64, 8)     # measured win (bwd too)
-    assert _single_plane_ok(640, 640, 64, 8)
-    assert not _single_plane_ok(2048, 2048, 64, 5)  # plane alone is 16 MB
-    assert not _single_plane_ok(1032, 1032, 64, 5)  # beyond the envelope
-    assert not _single_plane_ok(510, 510, 64, 5)    # not 8-aligned
-    assert not _single_plane_ok(512, 512, 2048, 8)  # streams blow budget
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    t0 = attention._KERNEL_MIN_T
+    assert attention._resolve_impl(None, 16, 64) == "xla"
+    assert attention._resolve_impl(None, t0 - 1, 64) == "xla"
+    assert attention._resolve_impl(None, t0, 64) == "pallas"
+    assert attention._resolve_impl(None, t0 + 8, 64) == "pallas"  # padded
+    assert attention._resolve_impl(None, 2 * t0, 64) == "pallas"
+    assert attention._resolve_impl(None, 2 * t0, 2048) == "xla"
+    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
+    assert attention._resolve_impl(None, 2 * t0, 64) == "xla"

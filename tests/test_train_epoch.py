@@ -80,13 +80,14 @@ def test_train_epochs_one_dispatch_matches_loop():
 
 
 def test_train_epochs_fused_matches_scan():
+    """The scanned n-epoch dispatch replays exactly the per-step fused
+    train_step loop over the same (unshuffled) batches."""
     x, y = _data(64)
     m_f = _toy(6, Adam(lr=1e-2))
     m_s = _toy(6, Adam(lr=1e-2))
-    lf = np.asarray(m_f.train_epochs(x, y, 3, batch_size=16, shuffle=False,
-                                     fused=True))
-    ls = np.asarray(m_s.train_epochs(x, y, 3, batch_size=16, shuffle=False,
-                                     fused=False))
+    lf = np.asarray([[float(m_f.train_step(x[i:i + 16], y[i:i + 16]))
+                      for i in range(0, 64, 16)] for _ in range(3)])
+    ls = np.asarray(m_s.train_epochs(x, y, 3, batch_size=16, shuffle=False))
     np.testing.assert_allclose(lf, ls, rtol=1e-4, atol=1e-5)
 
 

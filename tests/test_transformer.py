@@ -121,8 +121,7 @@ def test_transformer_scanned_epoch_and_checkpoint(tmp_path):
     rng = np.random.RandomState(0)
     x = rng.randint(0, 8, (64, 4))
     y = np.eye(8, dtype=np.float32)[x[:, 0]]
-    losses = np.asarray(m.train_epoch(x, y, batch_size=16, shuffle=False,
-                                      fused=False))
+    losses = np.asarray(m.train_epoch(x, y, batch_size=16, shuffle=False))
     assert np.isfinite(losses).all()
     path = os.path.join(str(tmp_path), "tf.pkl")
     m.save(path)

@@ -1,10 +1,10 @@
-"""tinynn_autograd_tpu: a TPU-native tape-based autodiff framework.
+"""tinynn_autograd_tpu: a tape-based autodiff framework on JAX/XLA.
 
 A from-scratch rebuild of the capabilities of borgwang/tinynn-autograd
-(reference mounted at /root/reference) designed for TPU hardware: tensors are
-HBM-resident jax.Arrays, reverse-mode autodiff is our own tape (not jax.grad),
-hot kernels run on the MXU via Pallas, whole train steps fuse into single XLA
-programs, and scaling is mesh data-parallelism with psum over ICI.
+designed for accelerators: tensors are device-resident jax.Arrays,
+reverse-mode autodiff is our own tape (not jax.grad), attention runs in
+Pallas flash kernels on the GPU, whole train steps fuse into single XLA
+programs, and scaling is mesh parallelism over XLA collectives.
 """
 
 from tinynn_autograd_tpu.core.tensor import Tensor, as_tensor

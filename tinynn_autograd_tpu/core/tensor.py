@@ -1,9 +1,10 @@
 """Tensor: a device-resident (HBM) array with tape-based reverse-mode autodiff.
 
-TPU-native redesign of the reference Tensor (reference: core/tensor.py:13-171).
+Accelerator redesign of the reference Tensor (reference:
+core/tensor.py:13-171).
 Differences from the reference, by design:
 
-- The payload is a ``jax.Array`` living in TPU HBM (or an XLA tracer when the
+- The payload is a ``jax.Array`` in device memory (or an XLA tracer when the
   enclosing computation is being staged by ``jax.jit``), not a numpy ndarray.
   Every op therefore works both eagerly *and* under tracing, which is what lets
   a whole train step (forward + tape walk + optimizer) compile into ONE fused

@@ -1,5 +1,5 @@
-"""MNIST CNN (driver config #4): Conv2D + MaxPool via im2col-matmul so both
-conv directions run on the MXU. NHWC layout throughout. The reference has no
+"""MNIST CNN (benchmark config #4): Conv2D + MaxPool, both conv directions
+single XLA convolutions. NHWC layout throughout. The reference has no
 conv layer (its run.py docstring mentions a CNN that never existed — see
 SURVEY.md §2.3)."""
 

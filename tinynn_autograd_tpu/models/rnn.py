@@ -1,7 +1,7 @@
 """Recurrent model family (LSTM/GRU sequence classifiers/regressors).
 
 The reference has no recurrent models (its only family is the MLP,
-reference examples/mnist/run.py:59-69); this is a TPU-native addition on
+reference examples/mnist/run.py:59-69); this is an addition on
 the single-scan BPTT primitives in ops/recurrent.py — each recurrent
 layer compiles to exactly two scan kernels (forward + reverse BPTT)
 regardless of sequence length or stack depth.

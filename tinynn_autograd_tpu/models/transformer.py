@@ -1,4 +1,4 @@
-"""Tiny transformer sequence classifier — a TPU-native model family with
+"""Tiny transformer sequence classifier — a model family with
 no reference counterpart, built ENTIRELY on the tape primitives: the
 attention matmuls are batched ``dot_`` calls, the score normalization is
 the fused ``softmax_`` primitive, the norms are ``layer_norm_`` — so the
@@ -51,8 +51,8 @@ def build_tiny_vit(image_shape=(28, 28, 1), patch=4, dim=64, heads=4,
                    depth=2, num_out=10, mlp_ratio=4, dropout=0.0):
     """Vision transformer classifier by PURE COMPOSITION of existing
     layers: Conv2D patchify (kernel == stride == patch, one token per
-    non-overlapping patch — the standard ViT embedding, and it rides the
-    same im2col-MXU path as the CNN family), Reshape to the [B, T, D]
+    non-overlapping patch — the standard ViT embedding, the same conv
+    path as the CNN family), Reshape to the [B, T, D]
     token sequence, learned position embeddings, TransformerBlocks,
     mean-pool, linear head. Input: images [B, H, W, C]."""
     h, w, c = image_shape

@@ -1,6 +1,6 @@
 // Native host-side data pipeline for tinynn_autograd_tpu.
 //
-// The TPU compute path is JAX/XLA/Pallas; this is the runtime AROUND it:
+// The device compute path is JAX/XLA/Pallas; this is the runtime AROUND it:
 // the per-epoch host work of the data iterator (permutation, row gather,
 // one-hot expansion) done as flat memcpy-style loops with optional
 // threading, callable from Python via ctypes (no pybind11 dependency).

@@ -13,10 +13,9 @@ Reference bugs fixed here (see SURVEY.md §2):
 - Tanh: the reference computes tanh(x/2) (reference core/layers.py:83-89);
   ours is true tanh.
 
-TPU additions beyond the reference: Conv2D + MaxPool2D (im2col-matmul so the
-conv FLOPs land on the MXU through the same Pallas matmul kernel as Dense —
-the reference has pad_ and conv-aware get_fans but no conv layer), Flatten,
-Dropout, LeakyReLU / GELU / Softplus.
+Additions beyond the reference: Conv2D + MaxPool2D (the reference has pad_
+and conv-aware get_fans but no conv layer), Flatten, Dropout, LeakyReLU /
+GELU / Softplus, and the sequence, attention and MoE layers below.
 """
 
 import contextlib
@@ -143,7 +142,7 @@ class Dense(Layer):
         cd = self.compute_dtype
         if cd is None:
             return inputs @ self.params["w"] + self.params["b"]
-        # bf16 operands feed the MXU natively; the matmul ACCUMULATES in
+        # bf16 operands feed the tensor cores; the matmul ACCUMULATES in
         # f32 (kernels.matmul invariant), and the result rounds ONCE at
         # the layer boundary so the downstream activation flows in cd
         return _to_dtype(
@@ -168,7 +167,7 @@ class Dense(Layer):
 class LayerNorm(Layer):
     """Layer normalization over the last axis with learned gamma/beta
     (ops.layer_norm_ fused primitive, hand VJPs). Stateless — works in
-    every execution tier (eager, fused step, scanned/megakernel epochs).
+    every execution path (eager, fused step, scanned epochs).
     ``dim`` may be omitted and is inferred from the first input (lazy
     init, like Dense). No reference counterpart (the reference has no
     normalization layers)."""
@@ -310,9 +309,10 @@ class TransformerBlock(Layer):
     counterpart (the reference has no attention or sequence models).
 
     ``attn``: "fused" (default) runs the attention core as the ONE
-    flash-style primitive ``ops.flash_attention_`` — a Pallas online-
-    softmax kernel on TPU (no [T, T] score tensors in HBM; exact-math XLA
-    fallback elsewhere, see ops/attention.py); "tape" keeps the explicit
+    flash-style primitive ``ops.flash_attention_`` — Triton online-
+    softmax kernels on the GPU for long sequences (no [T, T] score tensors
+    in device memory; exact-math XLA twin elsewhere, see
+    ops/attention.py); "tape" keeps the explicit
     4-primitive chain (same numerics — the cross-check path, and the one
     the parallel wrappers mirror for their sharded attention).
 
@@ -392,9 +392,6 @@ class TransformerBlock(Layer):
         out) from the threaded per-step rng (or the global seeder)."""
         rng = self._rng
         self._rng = None
-        if isinstance(rng, tuple) and rng[0] == "pltpu_seed":
-            return [("pltpu_seed", rng[1] * 7919 + k) + rng[2:]
-                    for k in range(3)]
         if rng is None:
             rng = seeder.next_key()
         import jax
@@ -634,7 +631,7 @@ class MoE(Layer):
     path: for production-scale expert counts use
     ``ExpertParallel(..., dispatch="a2a")`` (capacity-factor all_to_all
     token dispatch, aggregate FLOPs ~ capacity_factor/E of dense-select).
-    Params are stacked [E, ...] leaves (batched matmuls on the MXU).
+    Params are stacked [E, ...] leaves (batched matmuls).
     No reference counterpart."""
 
     def __init__(self, num_experts, dim=None, hidden=None, w_init=None,
@@ -702,7 +699,7 @@ class MoE(Layer):
         return flat, probs, onehot
 
     def expert_outputs(self, flat, w1, b1, w2, b2):
-        """All experts on all tokens: [E, N, D] (batched MXU matmuls)."""
+        """All experts on all tokens: [E, N, D] (batched matmuls)."""
         h = ops.relu_(flat.reshape((1,) + tuple(flat.shape)) @ w1 + b1)
         return h @ w2 + b2
 
@@ -740,7 +737,7 @@ class _RecurrentBase(Layer):
     the first input's feature size, and the full-sequence-vs-last-step
     output policy. The reference has no recurrent machinery at all (its
     only model family is the MLP, reference examples/mnist/run.py:59-69);
-    these layers are TPU-native additions built on the single-scan BPTT
+    these layers are additions built on the single-scan BPTT
     primitives in ops/recurrent.py."""
 
     _GATES = None  # subclass: number of fused gates G
@@ -1116,17 +1113,16 @@ def _same_pad(size, k, s):
 
 
 class Conv2D(Layer):
-    """2-D convolution over NHWC inputs via im2col + MXU matmul.
+    """2-D convolution over NHWC inputs: XLA's convolution, or im2col +
+    matmul.
 
     kernel: [KH, KW, C_in, C_out]; im2col is built from KH*KW STRIDED BASIC
-    SLICES of the (padded) input concatenated along a new patch axis — on
-    TPU this lowers to cheap windowed copies, and each slice's autograd VJP
-    is a slice-add (so the backward col2im is pad-and-add rather than a
-    general scatter). The patch matrix then contracts against the flattened
-    kernel with the same matmul primitive as Dense, putting both conv
-    directions on the MXU (driver config #4: im2col matmul fwd/bwd). The
-    reference has no conv layer (only its support ops: pad_, conv-aware
-    get_fans).
+    SLICES of the (padded) input concatenated along a new patch axis, and
+    each slice's autograd VJP is a slice-add (so the backward col2im is
+    pad-and-add rather than a general scatter). The patch matrix then
+    contracts against the flattened kernel with the same matmul primitive
+    as Dense (benchmark config #4: im2col matmul fwd/bwd). The reference has
+    no conv layer (only its support ops: pad_, conv-aware get_fans).
     """
 
     def __init__(self, kernel, stride=1, padding="SAME",
@@ -1135,9 +1131,9 @@ class Conv2D(Layer):
         """kernel: (KH, KW, C_in, C_out) — C_in may be None for lazy init.
 
         impl: "xla" (default) runs the conv2d_ primitive whose fwd and both
-        hand VJPs are single lax conv calls on the MXU; "im2col" composes
-        the conv from strided-slice patches + the Pallas matmul (useful as
-        a cross-check and where native convs are unavailable).
+        hand VJPs are single lax conv calls; "im2col" composes the conv
+        from strided-slice patches + the matmul primitive (useful as a
+        cross-check and where native convs are unavailable).
 
         compute_dtype: mixed precision exactly as in Dense — input and
         kernel cast at use, output flows in that dtype, f32 master params."""
@@ -1508,10 +1504,8 @@ class Remat(Layer):
     so both passes draw identical dropout masks.
 
     In TEST phase (no backward coming) the wrapper is a transparent
-    pass-through. The fused megakernel/streaming tiers don't admit
-    wrapped layers (ops/fused_epoch.py ``supports`` returns False), so
-    ``train_epochs(fused="auto")`` falls back to the scanned epoch —
-    the right tier anyway for models big enough to need remat.
+    pass-through. ``train_epochs`` runs the remat step under lax.scan
+    like any other.
 
     Parallel wrappers: DataParallel composes fully (the recompute traces
     inside the shard_map step; parity-tested). TensorParallel and

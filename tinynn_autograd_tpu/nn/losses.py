@@ -57,8 +57,7 @@ class SoftmaxCrossEntropyLoss(BaseLoss):
         logits = _f32_logits(logits)
         m = logits.shape[0]
         log_p = ops.log_softmax_(logits, axis=-1)
-        # keepdims: all intermediates stay 2-D, which both XLA and Mosaic
-        # (the fused-epoch kernel) lay out cleanly; same math either way
+        # keepdims: all intermediates keep the logits' rank
         nll = -(log_p * labels).sum(axis=1, keepdims=True)
         if self._weight is not None:
             per_sample_w = (labels * self._weight).sum(axis=1, keepdims=True)

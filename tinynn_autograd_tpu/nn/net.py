@@ -26,18 +26,9 @@ class Net:
         if rng is not None:
             rng_layers = [l for l in self.layers if hasattr(l, "set_rng")]
             if rng_layers:
-                if isinstance(rng, tuple) and rng[0] == "pltpu_seed":
-                    # in-Pallas-kernel mode: derive a distinct int32 seed
-                    # per consuming layer from the step seed, preserving the
-                    # trailing interpret flag if present
-                    for idx, layer in enumerate(rng_layers):
-                        layer.set_rng(
-                            ("pltpu_seed", rng[1] * 1000003 + idx)
-                            + rng[2:])
-                else:
-                    keys = jax.random.split(rng, len(rng_layers))
-                    for layer, key in zip(rng_layers, keys):
-                        layer.set_rng(key)
+                keys = jax.random.split(rng, len(rng_layers))
+                for layer, key in zip(rng_layers, keys):
+                    layer.set_rng(key)
         for layer in self.layers:
             inputs = layer.forward(inputs)
         return inputs
@@ -119,11 +110,6 @@ class Net:
             buf.update(getattr(layer, "_new_buffers", None) or {})
             out.append(buf)
         return out
-
-    def has_buffers(self):
-        """True if any layer carries non-trainable state (so the fused
-        paths must thread a buffers tree)."""
-        return any(self.buffers_tree())
 
     def bind_buffers(self, tree):
         """Install a (possibly traced) buffers pytree as the layers' live

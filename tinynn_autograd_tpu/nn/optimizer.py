@@ -43,10 +43,9 @@ class BaseOptimizer:
     def __init__(self, lr, weight_decay=0.0, slot_dtype=None,
                  stochastic_rounding=False, clip_norm=None):
         """``slot_dtype``: storage dtype for the per-parameter state slots
-        (e.g. ``jnp.bfloat16`` to halve optimizer-state memory AND the HBM
-        slot traffic that bounds Adam on the weight-streaming path — see
-        BENCHMARKS.md walls). The update math always runs in float32; only
-        the stored moments are rounded.
+        (e.g. ``jnp.bfloat16`` to halve optimizer-state memory and the
+        slot traffic of every update). The update math always runs in
+        float32; only the stored moments are rounded.
 
         With the default round-to-nearest, bf16 storage has a real
         numerics cost: relative EMA increments below bf16's 2^-8
@@ -61,11 +60,8 @@ class BaseOptimizer:
         ``clip_norm``: global-norm gradient clipping (torch semantics:
         grads scaled by min(1, clip_norm / (||g||_2 + 1e-6)) over ALL
         leaves jointly) applied inside ``update`` before the rule — so it
-        takes effect in every tier that routes through update (eager
-        facade, fused step, scanned epoch, megakernel). The streaming
-        kernels apply per-leaf updates in-kernel and cannot see the
-        global norm, so they decline clip_norm optimizers (the Model
-        falls back to the scanned tier)."""
+        takes effect on every path that routes through update (eager
+        facade, fused step, scanned epoch)."""
         self.lr = lr
         self.weight_decay = weight_decay
         self.clip_norm = clip_norm
@@ -104,9 +100,8 @@ class BaseOptimizer:
         (e.g. bf16-param training: bf16 slots in must mean bf16 slots
         out). The step is returned in the gradient's dtype so params are
         not silently promoted. ``salt`` decorrelates the stochastic-
-        rounding streams across leaves/layers. Every execution tier
-        (eager facade, fused step, scanned epoch, streaming backward
-        kernel) goes through here."""
+        rounding streams across leaves/layers. Every execution path
+        (eager facade, fused step, scanned epoch) goes through here."""
         slots32 = {k: jnp.asarray(v).astype(jnp.float32)
                    for k, v in slots.items()}
         step, new = self._step_leaf(g, lr, t, slots32)
@@ -252,14 +247,13 @@ class Adam(BaseOptimizer):
     def _step_leaf(self, g, lr, t, slots):
         m = slots["m"] + (1.0 - self._b1) * (g - slots["m"])
         v = slots["v"] + (1.0 - self._b2) * (g * g - slots["v"])
-        # Mosaic-friendly forms (no powf): b**t = exp(t*ln b), x**0.5 = sqrt.
-        # Bias corrections are folded into SCALARS:
+        # powf-free forms: b**t = exp(t*ln b), x**0.5 = sqrt. Bias
+        # corrections are folded into SCALARS:
         #   -lr * m_hat / (sqrt(v_hat) + eps)
         #     == -(lr/c1) * m / (sqrt(v) * rsqrt(c2) + eps)
         # (identical within ~1 ulp of reassociation) — this trades the two
         # per-ELEMENT divisions for one scalar division + one elementwise
-        # multiply, a measured component of the megakernel's per-step
-        # optimizer wall (BENCHMARKS.md).
+        # multiply.
         tf = t.astype(jnp.float32)
         c1 = 1.0 - jnp.exp(tf * jnp.log(self._b1))
         c2 = 1.0 - jnp.exp(tf * jnp.log(self._b2))
@@ -273,15 +267,12 @@ class Lion(BaseOptimizer):
     SIGN of an interpolated momentum —
       u = sign(b1 * m + (1 - b1) * g);  step = -lr * u;
       m = b2 * m + (1 - b2) * g.
-    One state slot (half Adam's optimizer memory — and half its slot HBM
-    traffic on the weight-streaming path, where Adam's m/v streams ARE
-    the wall, BENCHMARKS.md), elementwise and powf-free, so it runs in
-    every execution tier including the VMEM megakernel and the streaming
-    kernels. Typical recipe: ~10x smaller lr and ~10x larger weight_decay
-    than Adam. ``weight_decay`` follows the framework-wide decoupled rule
-    (step -= weight_decay * p, applied by the base after the rule). TPU
-    addition — no reference counterpart (the reference zoo is
-    SGD..Adadelta, core/optimizer.py)."""
+    One state slot (half Adam's optimizer memory and slot traffic),
+    elementwise and powf-free. Typical recipe: ~10x smaller lr and ~10x
+    larger weight_decay than Adam. ``weight_decay`` follows the
+    framework-wide decoupled rule (step -= weight_decay * p, applied by
+    the base after the rule). An addition — no reference counterpart (the
+    reference zoo is SGD..Adadelta, core/optimizer.py)."""
 
     slot_names = ("m",)
 
@@ -317,8 +308,8 @@ class RMSProp(BaseOptimizer):
 
     def _step_leaf(self, g, lr, t, slots):
         ms = slots["ms"] + (1.0 - self._decay) * (g * g - slots["ms"])
-        # g / sqrt(x) == g * rsqrt(x) within ~1 ulp; one VPU op instead of
-        # sqrt + divide (the megakernel's optimizer elementwise wall)
+        # g / sqrt(x) == g * rsqrt(x) within ~1 ulp; one op instead of
+        # sqrt + divide
         mom = (self._momentum * slots["mom"]
                + lr * g * jax.lax.rsqrt(ms + self._eps))
         return -mom, {"ms": ms, "mom": mom}

@@ -2,7 +2,7 @@
 
 The reference's optimizer module docstring promises "learning rate
 schedulers" but contains none (reference: core/optimizer.py:1); these are the
-TPU-native fill-in. A schedule is a callable ``t -> lr`` evaluated on the
+fill-in. A schedule is a callable ``t -> lr`` evaluated on the
 ON-DEVICE step counter inside the jitted train step, so changing lr never
 forces a recompile or a host round trip. Pass one as the ``lr`` argument of
 any optimizer.

@@ -1,5 +1,5 @@
 """Functional op namespace mirroring the reference's ``core/ops.py`` surface
-(coercing wrappers, reference: core/ops.py:347-384) plus the TPU additions."""
+(coercing wrappers, reference: core/ops.py:347-384) plus the additions."""
 
 from tinynn_autograd_tpu.ops import kernels
 from tinynn_autograd_tpu.ops.primitives import (

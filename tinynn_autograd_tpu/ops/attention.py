@@ -2,12 +2,12 @@
 
 The tape's generic attention path (TransformerBlock, nn/layers.py) is four
 tape primitives — batched dot_, softmax_, dot_ — whose XLA lowering
-materializes the [B, H, T, T] score/probability tensors in HBM twice per
-direction. These kernels compute softmax(Q K^T * scale [+ causal mask]) V
-with the ONLINE-softmax recurrence (Flash Attention 2): scores live only in
-VMEM one [bq, bk] tile at a time, HBM sees just Q/K/V/O plus a per-row
-logsumexp — O(T) memory instead of O(T^2), and the whole forward is ONE
-kernel instead of ~5.
+materializes the [B, H, T, T] score/probability tensors in device memory
+in both directions. These kernels compute softmax(Q K^T * scale [+ causal
+mask]) V with the ONLINE-softmax recurrence (Flash Attention 2): scores
+live only in registers and shared memory one [bq, bk] tile at a time, and
+device memory sees just Q/K/V/O plus a per-row logsumexp — O(T) memory
+instead of O(T^2).
 
 Backward is the standard recompute scheme, hand-derived (NO jax.grad — this
 is a tape primitive like everything else, see ops.primitives.flash_attention_):
@@ -20,166 +20,63 @@ is a tape primitive like everything else, see ops.primitives.flash_attention_):
     dQ_i  = sum_j ds_ij K_j
     dK_j  = sum_i ds_ij Q_i
 
-run as two kernels (dQ gridded over query blocks, dK/dV over key blocks) so
-each output is written exactly once — no cross-grid-step races. The dK/dV
-kernel works in the TRANSPOSED tile layout (s^T, p^T with keys on sublanes)
-so that every matmul keeps the MXU-native operand order.
+run as two kernels (dQ over query blocks, dK/dV over key blocks) so each
+output block is written by exactly one program — no atomics.
 
-Layout rules (v5e, measured): Mosaic inserts lane<->sublane relayouts for
-any dot whose lhs does not contract its MINOR dim or whose rhs does not
-contract its MAJOR dim — a first cut that contracted K/V on their minor
-axes ran 1.4x SLOWER than XLA. Every dot below is in native form; the
-operands that need transposing (K^T, V^T, Q^T, dO^T) are produced ONCE per
-call at the XLA level (fused copies, ~us) and streamed to the kernels.
+The kernels are written for Pallas's Triton route (``backend="triton"``):
+one program per (query or key block, head); the sequential sweep over the
+other axis is a ``fori_loop`` inside the program whose BOUNDS skip the
+tiles that the causal mask or the sliding window hide. Grouped-query
+attention is native: a query head's program reads its kv head's K/V
+(index ``head // group``), and the dK/dV program sums over its group.
+Tile edges are powers of two chosen from the shape; ragged lengths and head
+dims are zero-padded by the wrappers (padded keys are masked, padded query
+rows carry a zero cotangent).
 
-Grid layout: heads are BATCHED per grid step (G heads of one [bq, bk] tile
-at a time) because the per-grid-step pipeline cost (~1 us of DMA issue)
-would dominate a one-head-per-step layout at short sequence lengths; G is
-sized to the ~16 MB/core VMEM budget (G=32 at t=128 provably OOMs it).
-All matmuls accumulate in f32 on the MXU.
-
-Dispatch: Pallas on TPU (or interpret mode for CPU tests), with a pure-XLA
-fallback implementing the identical math (including the saved logsumexp) for
-CPU execution and odd shapes. No reference counterpart (the reference has no
-attention); the tape contract it plugs into is ops.primitives.
+Dispatch: the kernels on the GPU above the measured crossover
+(``_KERNEL_MIN_T``), interpret mode for CPU tests, and a pure-XLA twin
+implementing the identical math (including the saved logsumexp and the
+dropout masks) everywhere else. No reference counterpart (the reference
+has no attention); the tape contract it plugs into is ops.primitives.
 """
 
+import contextlib
+import contextvars
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from tinynn_autograd_tpu.ops import kernels
 
 _NEG_INF = -1e30
-# VMEM working-set target used to pick how many heads share one grid step
-_HEAD_BATCH_BUDGET = int(os.environ.get(
-    "TINYNN_TPU_ATTN_HEAD_BUDGET", str(6 * 1024 * 1024)))
-# Tile edge. 512 measured strictly better than 128/256 everywhere the
-# kernels engage (fewer grid steps; the kernels are step-overhead-bound
-# at 128): causal t=2048 fwd+bwd 951 vs 1604 us, t=4096 3647 vs 7107,
-# with G adapting down (to 1) to keep the working set inside VMEM.
-# Shorter sequences are unaffected (bq = min(_BLOCK, t)).
-_BLOCK = int(os.environ.get("TINYNN_TPU_ATTN_BLOCK", "512"))
-_FORCE_G = os.environ.get("TINYNN_TPU_ATTN_G")
-
-
-def _pick_block(t):
-    """Largest tile edge <= _BLOCK that divides t (t itself when shorter);
-    None when no lane-aligned tiling exists (callers fall back to XLA)."""
-    if t <= _BLOCK:
-        return t if t % 8 == 0 or t < 8 else None
-    for b in (_BLOCK, 256, 128):
-        if b <= _BLOCK and t % b == 0:
-            return b
-    return None
-
-
-# Whole-plane single-kernel envelope (round 5): the direct-softmax
-# kernels beat the gridded online-softmax form whenever the full [Tq, Tk]
-# score plane fits VMEM — measured at t=512 (fwd 4.5x, fwd+bwd 1.74x over
-# XLA) AND t=1024 (fwd 420 -> 237 us, fwd+bwd 1548 -> 1238 us over the
-# gridded kernels themselves). t=2048 is impossible (the plane alone is
-# 16 MB). _SINGLE_MAX_T caps eligibility to the measured territory.
-_SINGLE_MAX_T = int(os.environ.get("TINYNN_TPU_ATTN_SINGLE_MAX_T", "1024"))
-_SINGLE_VMEM_BUDGET = 14 * 1024 * 1024
-# causal banded-backward crossover (BENCHMARKS round-5: the gridded
-# kernels' causal tile skip beats the band form at t=2048, flips at 4096)
-_BAND_BWD_CAUSAL_MIN_T = 4096
-
-
-def _single_plane_ok(tq, tk, d, n_streams):
-    """Whole-[Tq, Tk]-plane single-kernel eligibility: both dims inside
-    the measured envelope, 8-aligned, and the G=1 working set (2 live
-    f32 score planes + the streamed [T, d] operands) under the VMEM
-    budget. n_streams: 5 for the forward, 8 for the fused backward."""
-    if max(tq, tk) > _SINGLE_MAX_T or tq % 8 or tk % 8 or tq < 8 or tk < 8:
-        return False
-    plane = max(tq * max(tk, 128), tk * max(tq, 128)) * 4
-    streams = n_streams * max(tq, tk) * max(d, 128) * 4
-    return 2 * plane + streams <= _SINGLE_VMEM_BUDGET
-
-
-def _pick_band_rows(tq, tk, d, n_streams):
-    """Query-band height for the ROW-BAND direct-softmax forward (whole
-    key axis resident, bk == tk, no online-softmax recurrence): the
-    largest tile edge dividing tq whose working set — 2 live [bq, tk]
-    f32 planes plus the full-length K/V streams — fits the budget.
-    None when even the smallest band doesn't fit (t=4096: the K/V
-    streams alone are ~10.5 MB) or the key axis isn't lane-aligned."""
-    if tk % 8 or tk < 8:
-        return None
-    streams = n_streams * tk * max(d, 128) * 4
-    for bq in (512, 256, 128):
-        if tq % bq == 0 and 2 * bq * max(tk, 128) * 4 + streams \
-                <= _SINGLE_VMEM_BUDGET:
-            return bq
-    return None
-
-
-def _pick_head_batch(bh, bq, bk, d, n_streams=6):
-    """Heads per grid step: largest divisor of BH whose per-step working
-    set (n_streams [t,d]-ish blocks lane-padded to 128 plus two [bq,bk]
-    score tiles, x2 for pipeline double-buffering) fits the budget."""
-    if _FORCE_G:
-        g = min(int(_FORCE_G), bh)
-        while bh % g:
-            g -= 1
-        return g
-    per_head = (n_streams * max(bq, bk) * max(d, 128)
-                + 2 * bq * max(bk, 128)) * 4 * 2
-    g = max(1, _HEAD_BATCH_BUDGET // per_head)
-    g = min(g, bh)
-    while bh % g:
-        g -= 1
-    return g
 
 
 def band_mask(t, window):
     """Static [t, t] boolean visibility mask: causal, optionally banded
     to the sliding window (position p sees keys in (p - window, p]).
-    THE shared band-mask builder — the XLA fallbacks, the layers' tape
-    masks, and the decode prefill all use it, so the window semantics
-    cannot desynchronize between training, fallback, and serving."""
+    THE shared band-mask constructor — the XLA twin, the layers' tape masks,
+    and the decode prefill all use it, so the window semantics cannot
+    desynchronize between training, fallback, and serving."""
     m = np.tril(np.ones((t, t), np.bool_))
     if window is not None and window < t:
         m &= ~np.tril(np.ones((t, t), np.bool_), -int(window))
     return m
 
 
-def _causal_mask(rows0, cols0, g, nrow, ncol):
-    """[G, nrow, ncol] boolean: query index >= key index, where queries sit
-    on dim ``1`` offset rows0 ... or on dim 2 — callers pass which offset
-    belongs to rows/cols."""
-    rows = jax.lax.broadcasted_iota(jnp.int32, (g, nrow, ncol), 1) + rows0
-    cols = jax.lax.broadcasted_iota(jnp.int32, (g, nrow, ncol), 2) + cols0
-    return rows, cols
-
-
-def _bdot(a, b):
-    """Native batched matmul: [G, m, c] x [G, c, n] -> [G, m, n]
-    (lhs contracts its minor dim, rhs its major dim — no relayouts)."""
-    return jax.lax.dot_general(
-        a, b, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32)
-
-
 # ------------------------------------------------------- dropout machinery
 #
 # Attention-probability dropout with NO stored mask: the keep/drop decision
 # for probability p[h, qi, kj] is a pure counter-hash of the ABSOLUTE
-# (head, query, key) index and a per-call seed, so the forward kernel, both
-# recompute-backward kernels (which tile the [T, T] plane in a TRANSPOSED
-# orientation), and the XLA fallback all regenerate the identical mask
-# independently — in-kernel replay without materializing [B, H, T, T] bits
-# in HBM. Built on broadcasted_iota + a murmur3-style finalizer (the same
-# construction as ops.primitives._hash_bits_u32) so it lowers in Mosaic,
-# XLA-TPU, and CPU interpret mode alike; dropout needs i.i.d.-looking
-# bits, not crypto.
+# (query head, query, key) index and a per-call seed, so the forward kernel,
+# both recompute-backward kernels, and the XLA twin all regenerate the
+# identical mask independently — no [B, H, T, T] bits in device memory.
+# A murmur3-style finalizer over uint32 integers (the same construction as
+# ops.primitives._hash_bits_u32); dropout needs i.i.d.-looking bits, not
+# crypto.
 #
 # Math: with P = softmax(S) and M the keep mask, O = (M ∘ P / keep) V.
 # Only the P-V product is masked — the online-softmax normalizer l still
@@ -189,20 +86,11 @@ def _bdot(a, b):
 #     ds_ij = p_ij (m_ij (dO_i·V_j)/keep − D_i) scale
 #     dV_j  = Σ_i (m_ij p_ij / keep) dO_i.
 
-def _tile_keep_mask(seed, h0, q0, k0, g, nrow, ncol, tq, tk, thresh,
-                    q_axis=1):
-    """Boolean [g, nrow, ncol] keep-mask for one score tile. ``q_axis``
-    names which tile axis (1 or 2) carries the QUERY index — the dk/dv
-    kernel works transposed (keys on sublanes) and still replays the same
-    per-(head, q, k) decision."""
-    hi = jax.lax.broadcasted_iota(jnp.uint32, (g, nrow, ncol), 0) \
-        + jnp.asarray(h0, jnp.uint32)
-    a1 = jax.lax.broadcasted_iota(jnp.uint32, (g, nrow, ncol), 1)
-    a2 = jax.lax.broadcasted_iota(jnp.uint32, (g, nrow, ncol), 2)
-    qi = (a1 if q_axis == 1 else a2) + jnp.asarray(q0, jnp.uint32)
-    ki = (a2 if q_axis == 1 else a1) + jnp.asarray(k0, jnp.uint32)
-    x = (hi * jnp.uint32(tq) + qi) * jnp.uint32(tk) + ki
-    x = x + jnp.asarray(seed, jnp.uint32) * jnp.uint32(2654435761)
+def _keep_mask(seed, head, qi, ki, tq, tk, thresh):
+    """Keep decisions for the (head, qi, ki) index triples (uint32 arrays
+    that broadcast together): True where the probability survives."""
+    x = (head * jnp.uint32(tq) + qi) * jnp.uint32(tk) + ki
+    x = x + seed * jnp.uint32(2654435761)
     x = (x ^ (x >> 16)) * jnp.uint32(0x7FEB352D)
     x = (x ^ (x >> 15)) * jnp.uint32(0x846CA68B)
     x = x ^ (x >> 16)
@@ -213,765 +101,445 @@ def _keep_thresh(rate):
     return jnp.uint32(int((1.0 - rate) * (2 ** 32 - 1)))
 
 
-# --------------------------------------------------------------- forward
+def plane_keep_mask(seed, n_heads, tq, tk, rate):
+    """[n_heads, tq, tk] keep mask — the same per-(head, q, k) hash the
+    kernels replay tile by tile, over the whole plane. ``n_heads`` counts
+    query heads (B * H, batch-major)."""
+    shape = (n_heads, tq, tk)
+    idx = [jax.lax.broadcasted_iota(jnp.uint32, shape, a) for a in range(3)]
+    return _keep_mask(jnp.asarray(seed, jnp.uint32), idx[0], idx[1], idx[2],
+                      tq, tk, _keep_thresh(rate))
 
-def _fwd_kernel_single(seed_ref, q_ref, kt_ref, v_ref, o_ref, lse_ref,
-                       *, scale, causal, bq, bk, g, tq, tk, dropout, window):
-    """Direct-softmax kernel (VERDICT r4 item 4, generalized round 5):
-    the whole KEY axis is resident (bk == tk), so the online-softmax
-    recurrence — scratch init/rescale/finish and their @pl.when branches
-    — is pure overhead and each grid step computes its query rows'
-    softmax directly: one [bq, tk] s plane, row softmax, one P·V matmul.
-    bq == tq is the original whole-plane short-T case; bq < tq is the
-    ROW-BAND case for longer sequences whose full plane doesn't fit VMEM
-    but a band does (grid axis 1 walks query bands). Same outputs
-    (o, lse), same dropout semantics as the gridded kernel."""
-    b, i = pl.program_id(0), pl.program_id(1)
-    q = q_ref[...]
-    s = _bdot(q, kt_ref[...]) * scale                  # [G, bq, tk] f32
+
+# ------------------------------------------------------------ tile choice
+
+def _edge(t, pref):
+    """Power-of-two tile edge: ``pref`` or the padded length when shorter,
+    never below 16 (the smallest operand Triton's dot takes)."""
+    return max(16, min(pref, pl.next_power_of_2(t)))
+
+
+# Tile choices, from bench_attention.py --sweep on an H100 (400 W limit),
+# float32 at d=64, seq 128 / 1024 / 2048: forward (128, 64) with 8 warps
+# ran within 5% of the best of nine candidates at 1024 and 2048 and was
+# the best at 128; the backward's (64, 32) with 4 warps was the best at
+# 1024 and 2048. Wider head dims halve the key tile so the staged K/V
+# tiles stay inside the 227 KB of shared memory a block may use (the
+# (128, 64) backward at d=64 already asked for 263 KB and was refused).
+
+def _fwd_tiles(tq, tk, d):
+    """(bq, bk, num_warps, num_stages) of the forward kernel."""
+    return _edge(tq, 128), _edge(tk, 64 if d <= 64 else 32), 8, 3
+
+
+def _bwd_tiles(tq, tk, d):
+    """(bq, bk, num_warps, num_stages) shared by the dQ and dK/dV kernels."""
+    return _edge(tq, 64 if d <= 64 else 32), _edge(tk, 32), 4, 2
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _padded(tq, tk, bq, bk, causal):
+    """Whole-tile lengths. Causal attention pads both axes to one length
+    (a multiple of both edges) so the diagonal's key blocks all exist."""
     if causal:
-        rows, cols = _causal_mask(i * bq, 0, g, bq, bk)
+        t = _round_up(tq, max(bq, bk))
+        return t, t
+    return _round_up(tq, bq), _round_up(tk, bk)
+
+
+def _pad_to(x, axis, size):
+    if x.shape[axis] == size:
+        return x
+    pad = [(0, 0)] * x.ndim
+    pad[axis] = (0, size - x.shape[axis])
+    return jnp.pad(x, pad)
+
+
+# --------------------------------------------------------- kernel helpers
+
+def _visible(s, rows, cols, causal, window, tk, tk_pad):
+    """Mask one score tile: causal band, sliding window, and the padded
+    keys at and beyond ``tk`` when the key axis was padded to ``tk_pad``."""
+    vis = None
+    if causal:
         vis = rows >= cols
         if window is not None:
             vis = vis & (rows - cols < window)
-        s = jnp.where(vis, s, _NEG_INF)
-    m = jnp.max(s, axis=2, keepdims=True)
-    p = jnp.exp(s - m)
-    l = jnp.sum(p, axis=2, keepdims=True)
-    if dropout > 0.0:
-        keep = _tile_keep_mask(seed_ref[0, 0], b * g, i * bq, 0,
-                               g, bq, bk, tq, tk, _keep_thresh(dropout))
-        p = jnp.where(keep, p, 0.0) * (1.0 / (1.0 - dropout))
-    o_ref[...] = (_bdot(p.astype(q.dtype), v_ref[...]) / l).astype(
-        o_ref.dtype)
-    lse_ref[...] = m + jnp.log(l)
+    if tk < tk_pad:
+        pad_ok = cols < tk
+        vis = pad_ok if vis is None else vis & pad_ok
+    return s if vis is None else jnp.where(vis, s, _NEG_INF)
 
 
-def _fwd_kernel(seed_ref, q_ref, kt_ref, v_ref, o_ref, lse_ref, acc, m_scr,
-                l_scr, *, scale, causal, bq, bk, g, tq, tk, dropout, window):
-    b, i, j = pl.program_id(0), pl.program_id(1), pl.program_id(2)
-
-    @pl.when(j == 0)
-    def _init():
-        acc[...] = jnp.zeros_like(acc)
-        m_scr[...] = jnp.full_like(m_scr, _NEG_INF)
-        l_scr[...] = jnp.zeros_like(l_scr)
-
-    vis_tile = jnp.logical_or(not causal, j * bk <= i * bq + bq - 1)
+def _key_blocks(i, bq, bk, nk, causal, window):
+    """[lo, hi) key-block range that query block ``i`` can see."""
+    if not causal:
+        return 0, nk
+    hi = jax.lax.div((i + 1) * bq + bk - 1, bk)
+    lo = 0
     if window is not None:
-        # tiles entirely BELOW the sliding window are fully masked too
-        vis_tile = jnp.logical_and(
-            vis_tile, j * bk + bk - 1 >= i * bq - window + 1)
-
-    @pl.when(vis_tile)
-    def _tile():
-        q = q_ref[...]
-        s = _bdot(q, kt_ref[...]) * scale              # [G, bq, bk] f32
-        if causal:
-            rows, cols = _causal_mask(i * bq, j * bk, g, bq, bk)
-            vis = rows >= cols
-            if window is not None:
-                vis = vis & (rows - cols < window)
-            s = jnp.where(vis, s, _NEG_INF)
-        m_old = m_scr[...]                             # [G, bq, 1]
-        m_new = jnp.maximum(m_old, jnp.max(s, axis=2, keepdims=True))
-        alpha = jnp.exp(m_old - m_new)
-        p = jnp.exp(s - m_new)
-        l_scr[...] = l_scr[...] * alpha + jnp.sum(p, axis=2, keepdims=True)
-        if dropout > 0.0:
-            # mask the P·V accumulation only — the softmax normalizer
-            # keeps summing the unmasked p (see dropout machinery note)
-            keep = _tile_keep_mask(seed_ref[0, 0], b * g, i * bq, j * bk,
-                                   g, bq, bk, tq, tk, _keep_thresh(dropout))
-            p = jnp.where(keep, p, 0.0) * (1.0 / (1.0 - dropout))
-        acc[...] = acc[...] * alpha + _bdot(p.astype(q.dtype), v_ref[...])
-        m_scr[...] = m_new
-
-    @pl.when(j == pl.num_programs(2) - 1)
-    def _finish():
-        l = l_scr[...]
-        o_ref[...] = (acc[...] / l).astype(o_ref.dtype)
-        lse_ref[...] = m_scr[...] + jnp.log(l)
+        lo = jax.lax.div(jnp.maximum(i * bq - window + 1, 0), bk)
+    return lo, hi
 
 
-def _fwd_pallas(q, kt, v, scale, causal, interpret, dropout=0.0,
-                seed=None, window=None):
-    bh, tq, d = q.shape
-    tk = v.shape[1]
-    bq, bk = _pick_block(tq), _pick_block(tk)
-    if _single_plane_ok(tq, tk, d, n_streams=5):
-        # whole plane fits: the direct-softmax kernel beats the gridded
-        # form even where a multi-tile grid exists (t=1024 measured)
-        bq, bk = tq, tk
-    else:
-        band = _pick_band_rows(tq, tk, d, n_streams=5)
-        if band is not None:
-            # plane doesn't fit but a query row-band does: direct
-            # softmax per band, whole key axis resident (t=2048 probe)
-            bq, bk = band, tk
-    g = _pick_head_batch(bh, bq, bk, d, n_streams=5)
-    nq, nk = tq // bq, tk // bk
+def _query_blocks(j, bq, bk, nq, causal, window):
+    """[lo, hi) query-block range that can see key block ``j``."""
+    if not causal:
+        return 0, nq
+    lo = jax.lax.div(j * bk, bq)
+    hi = nq
+    if window is not None:
+        hi = jnp.minimum(
+            jax.lax.div(j * bk + bk - 1 + window - 1 + bq, bq), nq)
+    return lo, hi
 
-    # causal DMA skip: fully-masked tiles (j > i for square blocks) skip
-    # their compute via pl.when; CLAMPING the k/v block index to the last
-    # valid tile also skips their DMA (Pallas only fetches when a block
-    # index changes) — halves the streamed bytes of causal long sequences
-    def jc(i, j):
-        if not causal:
-            return j
-        j2 = jnp.minimum(j, i)
-        if window is not None:
-            # also clamp fetches of tiles below the window (their compute
-            # is skipped by the kernel's visibility predicate)
-            j2 = jnp.maximum(j2, jnp.maximum(0, i * bq - window + 1) // bk)
-        return j2
 
-    params = dict(scale=scale, causal=causal, bq=bq, bk=bk, g=g,
-                  tq=tq, tk=tk, dropout=dropout, window=window)
-    seed_arr = _seed_arr(seed)
-    if nk == 1:
-        # whole key axis resident (single plane or row-band): direct
-        # softmax kernel, no scratch
-        kern = functools.partial(_fwd_kernel_single, **params)
-        scratches = []
-    else:
-        kern = functools.partial(_fwd_kernel, **params)
-        scratches = [
-            pltpu.VMEM((g, bq, d), jnp.float32),
-            pltpu.VMEM((g, bq, 1), jnp.float32),
-            pltpu.VMEM((g, bq, 1), jnp.float32),
-        ]
-    o, lse = pl.pallas_call(
-        kern,
-        grid=(bh // g, nq, nk),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda b, i, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((g, bq, d), lambda b, i, j: (b, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((g, d, bk), lambda b, i, j: (b, 0, jc(i, j)),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((g, bk, d), lambda b, i, j: (b, jc(i, j), 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((bh, tq, d), q.dtype),
-            jax.ShapeDtypeStruct((bh, tq, 1), jnp.float32),
-        ],
-        out_specs=[
-            pl.BlockSpec((g, bq, d), lambda b, i, j: (b, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((g, bq, 1), lambda b, i, j: (b, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        scratch_shapes=scratches,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=4 * bh * tq * tk * d,
-            bytes_accessed=4 * bh * (tq + tk) * d * 4,
-            transcendentals=bh * tq * tk,
-        ),
-        interpret=interpret,
-    )(seed_arr, q, kt, v)
-    return o, lse
+def _kernel_precision(dtype, interpret):
+    """The precision the kernels' dots state. float32 operands on the GPU
+    take three TF32 tensor-core passes (TF32x3: the operands split into a
+    TF32 head and tail, float32-accurate products); plain IEEE float32
+    dots measured 3-10x slower than the XLA twin on the H100, with
+    register spills at the wider tiles. The CPU interpreter has no TF32x3
+    and runs HIGHEST (exact float32)."""
+    if jnp.dtype(dtype) != jnp.float32:
+        return None
+    if interpret:
+        return jax.lax.Precision.HIGHEST
+    return jax.lax.DotAlgorithmPreset.TF32_TF32_F32_X3
+
+
+def _call(kernel, grid, in_specs, out_specs, out_shape, warps, stages,
+          interpret, name):
+    return pl.pallas_call(
+        kernel, grid=grid, in_specs=in_specs, out_specs=out_specs,
+        out_shape=out_shape, backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=warps,
+                                                 num_stages=stages),
+        interpret=interpret, name=name)
 
 
 def _seed_arr(seed):
-    """Seed scalar as a (1, 1) uint32 SMEM operand (0 when unused)."""
-    if seed is None:
-        seed = 0
-    return jnp.asarray(seed, jnp.uint32).reshape(1, 1)
+    """Dropout seed as a (1,) uint32 operand (0 when unused)."""
+    return jnp.asarray(0 if seed is None else seed,
+                       jnp.uint32).reshape(1)
+
+
+# --------------------------------------------------------------- forward
+
+def _fwd_kernel(seed_ref, q_ref, k_ref, v_ref, o_ref, lse_ref, *, scale,
+                causal, window, bq, bk, nk, tq, tk, tk_pad, dropout,
+                precision):
+    i, h = pl.program_id(0), pl.program_id(1)
+    q = q_ref[...]                                     # [bq, d]
+    rows = i * bq + jnp.arange(bq)[:, None]
+    lo, hi = _key_blocks(i, bq, bk, nk, causal, window)
+    inv = 1.0 / (1.0 - dropout) if dropout > 0.0 else 1.0
+
+    def body(j, carry):
+        acc, m, l = carry
+        start = pl.multiple_of(j * bk, bk)
+        k = k_ref[pl.ds(start, bk), :]
+        v = v_ref[pl.ds(start, bk), :]
+        cols = start + jnp.arange(bk)[None, :]
+        s = pl.dot(q, k, trans_b=True, precision=precision) * scale
+        s = _visible(s, rows, cols, causal, window, tk, tk_pad)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        alpha = jnp.exp(m - m_new)
+        p = jnp.exp(s - m_new[:, None])
+        l = l * alpha + jnp.sum(p, axis=1)
+        if dropout > 0.0:
+            # mask the P·V accumulation only — the softmax normalizer
+            # keeps summing the unmasked p (see dropout machinery note)
+            keep = _keep_mask(seed_ref[0], h.astype(jnp.uint32),
+                              rows.astype(jnp.uint32),
+                              cols.astype(jnp.uint32), tq, tk,
+                              _keep_thresh(dropout))
+            p = jnp.where(keep, p, 0.0) * inv
+        acc = acc * alpha[:, None] + pl.dot(p.astype(v.dtype), v,
+                                            precision=precision)
+        return acc, m_new, l
+
+    acc, m, l = jax.lax.fori_loop(
+        lo, hi, body,
+        (jnp.zeros(q.shape, jnp.float32),
+         jnp.full((bq,), _NEG_INF, jnp.float32),
+         jnp.zeros((bq,), jnp.float32)))
+    o_ref[...] = (acc / l[:, None]).astype(o_ref.dtype)
+    lse_ref[...] = m + jnp.log(l)
+
+
+def _fwd_triton(q, k, v, group, scale, causal, window, dropout, seed,
+                interpret):
+    """q [BH, Tq, d], k/v [BH/group, Tk, d] -> (o [BH, Tq, d],
+    lse [BH, Tq] f32)."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    dp = max(16, pl.next_power_of_2(d))
+    bq, bk, warps, stages = _fwd_tiles(tq, tk, dp)
+    tq_pad, tk_pad = _padded(tq, tk, bq, bk, causal)
+    qp = _pad_to(_pad_to(q, 1, tq_pad), 2, dp)
+    kp = _pad_to(_pad_to(k, 1, tk_pad), 2, dp)
+    vp = _pad_to(_pad_to(v, 1, tk_pad), 2, dp)
+    kern = functools.partial(
+        _fwd_kernel, scale=scale, causal=causal, window=window, bq=bq,
+        bk=bk, nk=tk_pad // bk, tq=tq, tk=tk, tk_pad=tk_pad, dropout=dropout,
+        precision=_kernel_precision(q.dtype, interpret))
+    kv_spec = pl.BlockSpec((None, tk_pad, dp), lambda i, h: (h // group, 0, 0))
+    o, lse = _call(
+        kern, (tq_pad // bq, bh),
+        [pl.BlockSpec((1,), lambda i, h: (0,)),
+         pl.BlockSpec((None, bq, dp), lambda i, h: (h, i, 0)),
+         kv_spec, kv_spec],
+        [pl.BlockSpec((None, bq, dp), lambda i, h: (h, i, 0)),
+         pl.BlockSpec((None, bq), lambda i, h: (h, i))],
+        [jax.ShapeDtypeStruct((bh, tq_pad, dp), q.dtype),
+         jax.ShapeDtypeStruct((bh, tq_pad), jnp.float32)],
+        warps, stages, interpret, "flash_attention_fwd",
+    )(_seed_arr(seed), qp, kp, vp)
+    return o[:, :tq, :d], lse[:, :tq]
 
 
 # -------------------------------------------------------------- backward
 
-def _bwd_kernel_single(seed_ref, q_ref, kt_ref, k_ref, vt_ref, v_ref,
-                       qt_ref, dot_ref, do_ref, lse_ref, lse_r_ref,
-                       delta_ref, delta_r_ref, dq_ref, dk_ref, dv_ref, *,
-                       scale, causal, bq, bk, g, tq, tk, dropout, window):
-    """Short-T backward specialization (round 5): when the whole [T, T]
-    plane is one block, dq/dk/dv fuse into ONE kernel with no scratch
-    accumulators or @pl.when machinery. Both score orientations are
-    recomputed natively (s = Q K^T for dq; s^T = K Q^T for dk/dv) — two
-    extra [T,T]x[T,d] matmuls instead of in-kernel [T,T] relayouts,
-    keeping every dot in MXU-native form (the module's layout
-    discipline). Dropout replays the same absolute-index hash as the
-    forward — q_axis=2 on the transposed side."""
-    b = pl.program_id(0)
+def _dq_kernel(seed_ref, q_ref, k_ref, v_ref, do_ref, lse_ref, delta_ref,
+               dq_ref, *, scale, causal, window, bq, bk, nk, tq, tk,
+               tk_pad, dropout, precision):
+    i, h = pl.program_id(0), pl.program_id(1)
     q = q_ref[...]
-    k = k_ref[...]
+    do = do_ref[...]
+    lse = lse_ref[...][:, None]
+    delta = delta_ref[...][:, None]
+    rows = i * bq + jnp.arange(bq)[:, None]
+    lo, hi = _key_blocks(i, bq, bk, nk, causal, window)
     inv = 1.0 / (1.0 - dropout) if dropout > 0.0 else 1.0
-    thresh = _keep_thresh(dropout) if dropout > 0.0 else None
 
-    # --- normal orientation (queries on sublanes): ds -> dq
-    s = _bdot(q, kt_ref[...]) * scale                  # [G, T, T]
-    if causal:
-        rows, cols = _causal_mask(0, 0, g, bq, bk)
-        vis = rows >= cols
-        if window is not None:
-            vis = vis & (rows - cols < window)
-        s = jnp.where(vis, s, _NEG_INF)
-    p = jnp.exp(s - lse_ref[...])
-    dp = _bdot(do_ref[...], vt_ref[...])               # [G, T, T]
-    if dropout > 0.0:
-        keep = _tile_keep_mask(seed_ref[0, 0], b * g, 0, 0, g, bq, bk,
-                               tq, tk, thresh)
-        dp = jnp.where(keep, dp, 0.0) * inv
-    ds = (p * (dp - delta_ref[...]) * scale).astype(q.dtype)
-    dq_ref[...] = _bdot(ds, k).astype(dq_ref.dtype)
-
-    # --- transposed orientation (keys on sublanes): dv, dk
-    st = _bdot(k, qt_ref[...]) * scale                 # [G, T, T]
-    if causal:
-        rows, cols = _causal_mask(0, 0, g, bk, bq)
-        # rows are KEY indices, cols QUERY indices: valid when q >= k
-        vis = cols >= rows
-        if window is not None:
-            vis = vis & (cols - rows < window)
-        st = jnp.where(vis, st, _NEG_INF)
-    pt = jnp.exp(st - lse_r_ref[...])
-    dpt = _bdot(v_ref[...], dot_ref[...])              # [G, T, T]
-    if dropout > 0.0:
-        keep_t = _tile_keep_mask(seed_ref[0, 0], b * g, 0, 0, g, bk, bq,
-                                 tq, tk, thresh, q_axis=2)
-        ptd = jnp.where(keep_t, pt, 0.0) * inv
-        dpt = jnp.where(keep_t, dpt, 0.0) * inv
-    else:
-        ptd = pt
-    dv_ref[...] = _bdot(ptd.astype(k.dtype), do_ref[...]).astype(
-        dv_ref.dtype)
-    dst = (pt * (dpt - delta_r_ref[...]) * scale).astype(k.dtype)
-    dk_ref[...] = _bdot(dst, q).astype(dk_ref.dtype)
-
-
-def _bwd_pallas_single(q, kt, k, vt, v, qt, dot_, do, lse, lse_r, delta,
-                       delta_r, scale, causal, interpret, dropout=0.0,
-                       seed=None, window=None):
-    """pallas_call wrapper for _bwd_kernel_single: ONE kernel, grid only
-    over head batches, every operand a single whole-[T] block. The live
-    working set per head is ~8 [T, d] streams plus up to 4 [T, T] f32
-    score planes, so G is sized with the score planes dominating (the
-    shared _pick_head_batch formula assumes 2 planes; approximate the
-    extra pair as 2 more lane-padded streams of T columns)."""
-    bh, tq, d = q.shape
-    tk = v.shape[1]
-    bq, bk = tq, tk
-    extra = 2 * max(bq, bk) // max(d, 128) + 2
-    g = _pick_head_batch(bh, bq, bk, d, n_streams=9 + extra)
-    seed_arr = _seed_arr(seed)
-
-    def blk(shape):
-        return pl.BlockSpec(shape, lambda b: (b, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    params = dict(scale=scale, causal=causal, bq=bq, bk=bk, g=g,
-                  tq=tq, tk=tk, dropout=dropout, window=window)
-    dq, dk, dv = pl.pallas_call(
-        functools.partial(_bwd_kernel_single, **params),
-        grid=(bh // g,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda b: (0, 0),
-                         memory_space=pltpu.SMEM),
-            blk((g, bq, d)),    # q
-            blk((g, d, bk)),    # kt
-            blk((g, bk, d)),    # k
-            blk((g, d, bk)),    # vt
-            blk((g, bk, d)),    # v
-            blk((g, d, bq)),    # qt
-            blk((g, d, bq)),    # doT
-            blk((g, bq, d)),    # do
-            blk((g, bq, 1)),    # lse
-            blk((g, 1, bq)),    # lse_row
-            blk((g, bq, 1)),    # delta
-            blk((g, 1, bq)),    # delta_row
-        ],
-        out_shape=[jax.ShapeDtypeStruct((bh, tq, d), q.dtype),
-                   jax.ShapeDtypeStruct((bh, tk, d), q.dtype),
-                   jax.ShapeDtypeStruct((bh, tk, d), q.dtype)],
-        out_specs=[blk((g, bq, d)), blk((g, bk, d)), blk((g, bk, d))],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel",)),
-        cost_estimate=pl.CostEstimate(
-            flops=14 * bh * tq * tk * d,
-            bytes_accessed=11 * bh * (tq + tk) * d * 4,
-            transcendentals=2 * bh * tq * tk),
-        interpret=interpret,
-    )(seed_arr, q, kt, k, vt, v, qt, dot_, do, lse, lse_r, delta, delta_r)
-    return dq, dk, dv
-
-
-def _dq_kernel_band(seed_ref, q_ref, kt_ref, k_ref, vt_ref, do_ref,
-                    lse_ref, delta_ref, dq_ref, *, scale, causal, bq, bk,
-                    g, tq, tk, dropout, window):
-    """Row-band dq (round 5): the whole key axis is resident (bk == tk),
-    so each grid step computes its query band's dq directly — no
-    accumulator scratch, no @pl.when. The direct-form counterpart of
-    _dq_kernel, same math and dropout replay."""
-    b, i = pl.program_id(0), pl.program_id(1)
-    q = q_ref[...]
-    s = _bdot(q, kt_ref[...]) * scale                  # [G, bq, tk]
-    if causal:
-        rows, cols = _causal_mask(i * bq, 0, g, bq, bk)
-        vis = rows >= cols
-        if window is not None:
-            vis = vis & (rows - cols < window)
-        s = jnp.where(vis, s, _NEG_INF)
-    p = jnp.exp(s - lse_ref[...])
-    dp = _bdot(do_ref[...], vt_ref[...])               # [G, bq, tk]
-    if dropout > 0.0:
-        keep = _tile_keep_mask(seed_ref[0, 0], b * g, i * bq, 0, g, bq,
-                               bk, tq, tk, _keep_thresh(dropout))
-        dp = jnp.where(keep, dp, 0.0) * (1.0 / (1.0 - dropout))
-    ds = (p * (dp - delta_ref[...]) * scale).astype(q.dtype)
-    dq_ref[...] = _bdot(ds, k_ref[...]).astype(dq_ref.dtype)
-
-
-def _dkv_kernel_band(seed_ref, k_ref, qt_ref, q_ref, dot_ref, do_ref,
-                     v_ref, lse_r_ref, delta_r_ref, dk_ref, dv_ref, *,
-                     scale, causal, bq, bk, g, tq, tk, dropout, window):
-    """Row-band dk/dv (round 5): the whole QUERY axis is resident
-    (bq == tq here), grid walks KEY bands of height bk; transposed-tile
-    layout like _dkv_kernel (keys on sublanes) so every dot stays
-    MXU-native, but each band's dk/dv writes directly — no scratch."""
-    b, j = pl.program_id(0), pl.program_id(1)
-    k = k_ref[...]
-    st = _bdot(k, qt_ref[...]) * scale                 # [G, bk, tq]
-    if causal:
-        rows, cols = _causal_mask(j * bk, 0, g, bk, bq)
-        # rows are KEY indices, cols QUERY indices: valid when q >= k
-        vis = cols >= rows
-        if window is not None:
-            vis = vis & (cols - rows < window)
-        st = jnp.where(vis, st, _NEG_INF)
-    pt = jnp.exp(st - lse_r_ref[...])
-    dpt = _bdot(v_ref[...], dot_ref[...])              # [G, bk, tq]
-    if dropout > 0.0:
-        keep = _tile_keep_mask(seed_ref[0, 0], b * g, 0, j * bk, g, bk,
-                               bq, tq, tk, _keep_thresh(dropout), q_axis=2)
-        inv = 1.0 / (1.0 - dropout)
-        ptd = jnp.where(keep, pt, 0.0) * inv
-        dpt = jnp.where(keep, dpt, 0.0) * inv
-    else:
-        ptd = pt
-    dv_ref[...] = _bdot(ptd.astype(k.dtype), do_ref[...]).astype(
-        dv_ref.dtype)
-    dst = (pt * (dpt - delta_r_ref[...]) * scale).astype(k.dtype)
-    dk_ref[...] = _bdot(dst, q_ref[...]).astype(dk_ref.dtype)
-
-
-def _bwd_pallas_band(q, kt, k, vt, v, qt, dot_, do, lse, lse_r, delta,
-                     delta_r, scale, causal, interpret, dropout, seed,
-                     bq_band, bk_band, window=None):
-    """Banded backward: dq gridded over query bands (whole K resident),
-    dk/dv gridded over key bands (whole Q resident) — both direct-form,
-    no accumulator scratch. Engages between the whole-plane fused kernel
-    (plane fits) and the gridded recurrence kernels (nothing fits)."""
-    bh, tq, d = q.shape
-    tk = v.shape[1]
-    seed_arr = _seed_arr(seed)
-
-    # --- dq over query bands
-    g = _pick_head_batch(bh, bq_band, tk, d, n_streams=4)
-    params = dict(scale=scale, causal=causal, bq=bq_band, bk=tk, g=g,
-                  tq=tq, tk=tk, dropout=dropout, window=window)
-
-    def bi(shape):   # banded over axis 1 (query)
-        return pl.BlockSpec(shape, lambda b, i: (b, i, 0),
-                            memory_space=pltpu.VMEM)
-
-    def full(shape):
-        return pl.BlockSpec(shape, lambda b, i: (b, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    smem = pl.BlockSpec((1, 1), lambda b, i: (0, 0),
-                        memory_space=pltpu.SMEM)
-    dq = pl.pallas_call(
-        functools.partial(_dq_kernel_band, **params),
-        grid=(bh // g, tq // bq_band),
-        in_specs=[smem,
-                  bi((g, bq_band, d)), full((g, d, tk)),
-                  full((g, tk, d)), full((g, d, tk)),
-                  bi((g, bq_band, d)), bi((g, bq_band, 1)),
-                  bi((g, bq_band, 1))],
-        out_shape=jax.ShapeDtypeStruct((bh, tq, d), q.dtype),
-        out_specs=bi((g, bq_band, d)),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel")),
-        cost_estimate=pl.CostEstimate(
-            flops=6 * bh * tq * tk * d,
-            bytes_accessed=6 * bh * (tq + tk) * d * 4,
-            transcendentals=bh * tq * tk),
-        interpret=interpret,
-    )(seed_arr, q, kt, k, vt, do, lse, delta)
-
-    # --- dk/dv over key bands
-    g2 = _pick_head_batch(bh, tq, bk_band, d, n_streams=5)
-    params2 = dict(scale=scale, causal=causal, bq=tq, bk=bk_band, g=g2,
-                   tq=tq, tk=tk, dropout=dropout, window=window)
-
-    def bj(shape):   # banded over axis 1 (key)
-        return pl.BlockSpec(shape, lambda b, j: (b, j, 0),
-                            memory_space=pltpu.VMEM)
-
-    def full2(shape):
-        return pl.BlockSpec(shape, lambda b, j: (b, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    smem2 = pl.BlockSpec((1, 1), lambda b, j: (0, 0),
-                         memory_space=pltpu.SMEM)
-    dk, dv = pl.pallas_call(
-        functools.partial(_dkv_kernel_band, **params2),
-        grid=(bh // g2, tk // bk_band),
-        in_specs=[smem2,
-                  bj((g2, bk_band, d)),   # k band
-                  full2((g2, d, tq)),     # qt
-                  full2((g2, tq, d)),     # q
-                  full2((g2, d, tq)),     # doT
-                  full2((g2, tq, d)),     # do
-                  bj((g2, bk_band, d)),   # v band
-                  full2((g2, 1, tq)),     # lse_row
-                  full2((g2, 1, tq))],    # delta_row
-        out_shape=[jax.ShapeDtypeStruct((bh, tk, d), q.dtype),
-                   jax.ShapeDtypeStruct((bh, tk, d), q.dtype)],
-        out_specs=[bj((g2, bk_band, d)), bj((g2, bk_band, d))],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel")),
-        cost_estimate=pl.CostEstimate(
-            flops=6 * bh * tq * tk * d,
-            bytes_accessed=6 * bh * (tq + tk) * d * 4,
-            transcendentals=bh * tq * tk),
-        interpret=interpret,
-    )(seed_arr, k, qt, q, dot_, do, v, lse_r, delta_r)
-    return dq, dk, dv
-
-
-def _dq_kernel(seed_ref, q_ref, kt_ref, k_ref, vt_ref, do_ref, lse_ref,
-               delta_ref, dq_ref, dq_acc, *, scale, causal, bq, bk, g,
-               tq, tk, dropout, window):
-    b, i, j = pl.program_id(0), pl.program_id(1), pl.program_id(2)
-
-    @pl.when(j == 0)
-    def _init():
-        dq_acc[...] = jnp.zeros_like(dq_acc)
-
-    vis_tile = jnp.logical_or(not causal, j * bk <= i * bq + bq - 1)
-    if window is not None:
-        vis_tile = jnp.logical_and(
-            vis_tile, j * bk + bk - 1 >= i * bq - window + 1)
-
-    @pl.when(vis_tile)
-    def _tile():
-        q = q_ref[...]
-        s = _bdot(q, kt_ref[...]) * scale              # [G, bq, bk]
-        if causal:
-            rows, cols = _causal_mask(i * bq, j * bk, g, bq, bk)
-            vis = rows >= cols
-            if window is not None:
-                vis = vis & (rows - cols < window)
-            s = jnp.where(vis, s, _NEG_INF)
-        p = jnp.exp(s - lse_ref[...])
-        dp = _bdot(do_ref[...], vt_ref[...])           # [G, bq, bk]
+    def body(j, dq):
+        start = pl.multiple_of(j * bk, bk)
+        k = k_ref[pl.ds(start, bk), :]
+        v = v_ref[pl.ds(start, bk), :]
+        cols = start + jnp.arange(bk)[None, :]
+        s = pl.dot(q, k, trans_b=True, precision=precision) * scale
+        s = _visible(s, rows, cols, causal, window, tk, tk_pad)
+        p = jnp.exp(s - lse)
+        dp = pl.dot(do, v, trans_b=True, precision=precision)
         if dropout > 0.0:
             # replay the forward's keep decisions (same hash of the
             # absolute indices); ds = p (m dp/keep − D) scale
-            keep = _tile_keep_mask(seed_ref[0, 0], b * g, i * bq, j * bk,
-                                   g, bq, bk, tq, tk, _keep_thresh(dropout))
-            dp = jnp.where(keep, dp, 0.0) * (1.0 / (1.0 - dropout))
-        ds = (p * (dp - delta_ref[...]) * scale).astype(q.dtype)
-        dq_acc[...] += _bdot(ds, k_ref[...])           # [G, bq, d]
+            keep = _keep_mask(seed_ref[0], h.astype(jnp.uint32),
+                              rows.astype(jnp.uint32),
+                              cols.astype(jnp.uint32), tq, tk,
+                              _keep_thresh(dropout))
+            dp = jnp.where(keep, dp, 0.0) * inv
+        ds = p * (dp - delta) * scale
+        return dq + pl.dot(ds.astype(k.dtype), k, precision=precision)
 
-    @pl.when(j == pl.num_programs(2) - 1)
-    def _finish():
-        dq_ref[...] = dq_acc[...].astype(dq_ref.dtype)
-
-
-def _dkv_kernel(seed_ref, k_ref, qt_ref, q_ref, dot_ref, do_ref, v_ref,
-                lse_r_ref, delta_r_ref, dk_ref, dv_ref, dk_acc, dv_acc,
-                *, scale, causal, bq, bk, g, tq, tk, dropout, window):
-    """Transposed-tile layout: keys on sublanes, queries on lanes —
-    s^T = K Q^T, p^T = exp(s^T - L_row); then
-    dV = p^T dO and dK = ds^T Q are BOTH native-form matmuls."""
-    b, j, i = pl.program_id(0), pl.program_id(1), pl.program_id(2)
-
-    @pl.when(i == 0)
-    def _init():
-        dk_acc[...] = jnp.zeros_like(dk_acc)
-        dv_acc[...] = jnp.zeros_like(dv_acc)
-
-    vis_tile = jnp.logical_or(not causal, i * bq + bq - 1 >= j * bk)
-    if window is not None:
-        # query tiles entirely beyond this key block's window
-        vis_tile = jnp.logical_and(
-            vis_tile, i * bq <= j * bk + bk - 1 + window - 1)
-
-    @pl.when(vis_tile)
-    def _tile():
-        k = k_ref[...]
-        st = _bdot(k, qt_ref[...]) * scale             # [G, bk, bq]
-        if causal:
-            rows, cols = _causal_mask(j * bk, i * bq, g, bk, bq)
-            # rows are KEY indices, cols are QUERY indices: valid q >= k
-            vis = cols >= rows
-            if window is not None:
-                vis = vis & (cols - rows < window)
-            st = jnp.where(vis, st, _NEG_INF)
-        pt = jnp.exp(st - lse_r_ref[...])              # [G, bk, bq]
-        if dropout > 0.0:
-            # transposed-orientation replay: queries live on LANES here
-            # (q_axis=2), same absolute-index hash as the forward
-            keep = _tile_keep_mask(seed_ref[0, 0], b * g, i * bq, j * bk,
-                                   g, bk, bq, tq, tk, _keep_thresh(dropout),
-                                   q_axis=2)
-            inv = 1.0 / (1.0 - dropout)
-            ptd = jnp.where(keep, pt, 0.0) * inv       # masked p^T / keep
-            dv_acc[...] += _bdot(ptd.astype(k.dtype), do_ref[...])
-            dpt = _bdot(v_ref[...], dot_ref[...])      # [G, bk, bq]
-            dpt = jnp.where(keep, dpt, 0.0) * inv
-        else:
-            dv_acc[...] += _bdot(pt.astype(k.dtype), do_ref[...])
-            dpt = _bdot(v_ref[...], dot_ref[...])      # [G, bk, bq]
-        dst = (pt * (dpt - delta_r_ref[...]) * scale).astype(k.dtype)
-        dk_acc[...] += _bdot(dst, q_ref[...])          # [G, bk, d]
-
-    @pl.when(i == pl.num_programs(2) - 1)
-    def _finish():
-        dk_ref[...] = dk_acc[...].astype(dk_ref.dtype)
-        dv_ref[...] = dv_acc[...].astype(dv_ref.dtype)
+    dq = jax.lax.fori_loop(lo, hi, body, jnp.zeros(q.shape, jnp.float32))
+    dq_ref[...] = dq.astype(dq_ref.dtype)
 
 
-def _bwd_pallas(q, kt, k, vt, v, qt, dot_, do, lse, lse_r, delta, delta_r,
-                scale, causal, interpret, dropout=0.0, seed=None,
-                window=None):
+def _dkv_kernel(seed_ref, q_ref, k_ref, v_ref, do_ref, lse_ref, delta_ref,
+                dk_ref, dv_ref, *, scale, causal, window, bq, bk, nq, group,
+                tq, tk, tk_pad, dropout, precision):
+    """One key block of one kv head: sweeps the visible query blocks of
+    every query head in its GQA group, accumulating dK/dV in registers."""
+    j, c = pl.program_id(0), pl.program_id(1)
+    k = k_ref[...]                                     # [bk, d]
+    v = v_ref[...]
+    cols = j * bk + jnp.arange(bk)[None, :]
+    lo, hi = _query_blocks(j, bq, bk, nq, causal, window)
+    inv = 1.0 / (1.0 - dropout) if dropout > 0.0 else 1.0
+
+    def head_body(g, carry):
+        head = (c * group + g).astype(jnp.uint32)
+
+        def body(i, carry):
+            dk, dv = carry
+            start = pl.multiple_of(i * bq, bq)
+            q = q_ref[g, pl.ds(start, bq), :]
+            do = do_ref[g, pl.ds(start, bq), :]
+            lse = lse_ref[g, pl.ds(start, bq)][:, None]
+            delta = delta_ref[g, pl.ds(start, bq)][:, None]
+            rows = start + jnp.arange(bq)[:, None]
+            s = pl.dot(q, k, trans_b=True, precision=precision) * scale
+            s = _visible(s, rows, cols, causal, window, tk, tk_pad)
+            p = jnp.exp(s - lse)
+            dp = pl.dot(do, v, trans_b=True, precision=precision)
+            if dropout > 0.0:
+                keep = _keep_mask(seed_ref[0], head,
+                                  rows.astype(jnp.uint32),
+                                  cols.astype(jnp.uint32), tq, tk,
+                                  _keep_thresh(dropout))
+                pd = jnp.where(keep, p, 0.0) * inv
+                dp = jnp.where(keep, dp, 0.0) * inv
+            else:
+                pd = p
+            dv = dv + pl.dot(pd.astype(do.dtype), do, trans_a=True,
+                             precision=precision)
+            ds = p * (dp - delta) * scale
+            dk = dk + pl.dot(ds.astype(q.dtype), q, trans_a=True,
+                             precision=precision)
+            return dk, dv
+
+        return jax.lax.fori_loop(lo, hi, body, carry)
+
+    zeros = jnp.zeros(k.shape, jnp.float32)
+    dk, dv = jax.lax.fori_loop(0, group, head_body, (zeros, zeros))
+    dk_ref[...] = dk.astype(dk_ref.dtype)
+    dv_ref[...] = dv.astype(dv_ref.dtype)
+
+
+def _bwd_triton(q, k, v, do, lse, delta, group, scale, causal, window,
+                dropout, seed, interpret):
+    """q/do [BH, Tq, d], k/v [BH/group, Tk, d], lse/delta [BH, Tq] ->
+    (dq, dk, dv) in the operands' shapes."""
     bh, tq, d = q.shape
-    tk = v.shape[1]
-    if _single_plane_ok(tq, tk, d, n_streams=8):
-        return _bwd_pallas_single(
-            q, kt, k, vt, v, qt, dot_, do, lse, lse_r, delta, delta_r,
-            scale, causal, interpret, dropout, seed, window=window)
-    bq_band = _pick_band_rows(tq, tk, d, n_streams=4)
-    bk_band = _pick_band_rows(tk, tq, d, n_streams=5)
-    if bq_band is not None and bk_band is not None and (
-            not causal or max(tq, tk) >= _BAND_BWD_CAUSAL_MIN_T):
-        # plane doesn't fit but bands do: direct-form banded backward.
-        # Measured routing (BAND probes, b2h8 d64): non-causal t=2048
-        # band wins 1.26x over gridded; CAUSAL t=2048 band LOSES 0.93x
-        # (the gridded kernels' causal tile compute+DMA skip saves more
-        # than removing the recurrence gains) but flips back at t=4096
-        # (band 1.08x) where the skipped half is larger in absolute
-        # terms yet the per-step recurrence overhead has grown with the
-        # tile count.
-        return _bwd_pallas_band(
-            q, kt, k, vt, v, qt, dot_, do, lse, lse_r, delta, delta_r,
-            scale, causal, interpret, dropout, seed, bq_band, bk_band,
-            window=window)
-    bq, bk = _pick_block(tq), _pick_block(tk)
-    nq, nk = tq // bq, tk // bk
-    g = _pick_head_batch(bh, bq, bk, d, n_streams=8)
-    seed_arr = _seed_arr(seed)
+    nkv, tk = k.shape[0], k.shape[1]
+    dp = max(16, pl.next_power_of_2(d))
+    bq, bk, warps, stages = _bwd_tiles(tq, tk, dp)
+    tq_pad, tk_pad = _padded(tq, tk, bq, bk, causal)
+    qp = _pad_to(_pad_to(q, 1, tq_pad), 2, dp)
+    dop = _pad_to(_pad_to(do, 1, tq_pad), 2, dp)
+    kp = _pad_to(_pad_to(k, 1, tk_pad), 2, dp)
+    vp = _pad_to(_pad_to(v, 1, tk_pad), 2, dp)
+    lsep = _pad_to(lse, 1, tq_pad)
+    deltap = _pad_to(delta, 1, tq_pad)
+    nq, nk = tq_pad // bq, tk_pad // bk
+    common = dict(scale=scale, causal=causal, window=window, bq=bq, bk=bk,
+                  tq=tq, tk=tk, tk_pad=tk_pad, dropout=dropout,
+                  precision=_kernel_precision(q.dtype, interpret))
+    seed_spec = pl.BlockSpec((1,), lambda a, b: (0,))
 
-    # causal DMA skip (see _fwd_pallas): in the dq kernel tiles with j > i
-    # are fully masked — clamp their j-indexed block fetches
-    def jc(i, j):
-        if not causal:
-            return j
-        j2 = jnp.minimum(j, i)
-        if window is not None:
-            j2 = jnp.maximum(j2, jnp.maximum(0, i * bq - window + 1) // bk)
-        return j2
+    kv_full = pl.BlockSpec((None, tk_pad, dp), lambda i, h: (h // group, 0, 0))
+    q_blk = pl.BlockSpec((None, bq, dp), lambda i, h: (h, i, 0))
+    row_blk = pl.BlockSpec((None, bq), lambda i, h: (h, i))
+    dq = _call(
+        functools.partial(_dq_kernel, nk=nk, **common), (nq, bh),
+        [seed_spec, q_blk, kv_full, kv_full, q_blk, row_blk, row_blk],
+        q_blk, jax.ShapeDtypeStruct((bh, tq_pad, dp), q.dtype),
+        warps, stages, interpret, "flash_attention_dq",
+    )(_seed_arr(seed), qp, kp, vp, dop, lsep, deltap)
 
-    def blk(shape, which):
-        # which: grid axis the block index follows ('i' or 'j' or none)
-        if which == "i":
-            return pl.BlockSpec(shape, lambda b, i, j: (b, i, 0),
-                                memory_space=pltpu.VMEM)
-        if which == "j":
-            return pl.BlockSpec(shape, lambda b, i, j: (b, jc(i, j), 0),
-                                memory_space=pltpu.VMEM)
-        if which == "ti":   # transposed array, block over its LANE axis
-            return pl.BlockSpec(shape, lambda b, i, j: (b, 0, i),
-                                memory_space=pltpu.VMEM)
-        return pl.BlockSpec(shape, lambda b, i, j: (b, 0, jc(i, j)),
-                            memory_space=pltpu.VMEM)
-
-    params = dict(scale=scale, causal=causal, bq=bq, bk=bk, g=g,
-                  tq=tq, tk=tk, dropout=dropout, window=window)
-    smem_scalar = pl.BlockSpec((1, 1), lambda b, i, j: (0, 0),
-                               memory_space=pltpu.SMEM)
-    dq = pl.pallas_call(
-        functools.partial(_dq_kernel, **params),
-        grid=(bh // g, nq, nk),
-        in_specs=[smem_scalar,
-                  blk((g, bq, d), "i"), blk((g, d, bk), "tj"),
-                  blk((g, bk, d), "j"), blk((g, d, bk), "tj"),
-                  blk((g, bq, d), "i"), blk((g, bq, 1), "i"),
-                  blk((g, bq, 1), "i")],
-        out_shape=jax.ShapeDtypeStruct((bh, tq, d), q.dtype),
-        out_specs=blk((g, bq, d), "i"),
-        scratch_shapes=[pltpu.VMEM((g, bq, d), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary")),
-        cost_estimate=pl.CostEstimate(
-            flops=6 * bh * tq * tk * d,
-            bytes_accessed=6 * bh * (tq + tk) * d * 4,
-            transcendentals=bh * tq * tk),
-        interpret=interpret,
-    )(seed_arr, q, kt, k, vt, do, lse, delta)
-
-    # dkv grid: (BH/G, nk, nq) — axis 1 is the KEY block (named j in the
-    # kernel), axis 2 the QUERY block (named i), innermost/sequential.
-    # Causal skip here: tiles with i < j are fully masked — clamp their
-    # i-indexed block fetches.
-    def ic(j, i):
-        if not causal:
-            return i
-        i2 = jnp.maximum(i, j)
-        if window is not None:
-            i2 = jnp.minimum(i2, (j * bk + bk - 1 + window - 1) // bq)
-        return i2
-
-    def blk2(shape, which):
-        if which == "j":
-            return pl.BlockSpec(shape, lambda b, j, i: (b, j, 0),
-                                memory_space=pltpu.VMEM)
-        if which == "i":
-            return pl.BlockSpec(shape, lambda b, j, i: (b, ic(j, i), 0),
-                                memory_space=pltpu.VMEM)
-        return pl.BlockSpec(shape, lambda b, j, i: (b, 0, ic(j, i)),
-                            memory_space=pltpu.VMEM)  # "ti": lane axis = i
-
-    smem_scalar2 = pl.BlockSpec((1, 1), lambda b, j, i: (0, 0),
-                                memory_space=pltpu.SMEM)
-    dk, dv = pl.pallas_call(
-        functools.partial(_dkv_kernel, **params),
-        grid=(bh // g, nk, nq),
-        in_specs=[
-            smem_scalar2,
-            blk2((g, bk, d), "j"),     # k
-            blk2((g, d, bq), "ti"),    # qt
-            blk2((g, bq, d), "i"),     # q
-            blk2((g, d, bq), "ti"),    # doT
-            blk2((g, bq, d), "i"),     # do
-            blk2((g, bk, d), "j"),     # v
-            blk2((g, 1, bq), "ti"),    # lse_row [BH, 1, T]
-            blk2((g, 1, bq), "ti"),    # delta_row [BH, 1, T]
-        ],
-        out_shape=[jax.ShapeDtypeStruct((bh, tk, d), q.dtype),
-                   jax.ShapeDtypeStruct((bh, tk, d), q.dtype)],
-        out_specs=[blk2((g, bk, d), "j"), blk2((g, bk, d), "j")],
-        scratch_shapes=[pltpu.VMEM((g, bk, d), jnp.float32),
-                        pltpu.VMEM((g, bk, d), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary")),
-        cost_estimate=pl.CostEstimate(
-            flops=6 * bh * tq * tk * d,
-            bytes_accessed=6 * bh * (tq + tk) * d * 4,
-            transcendentals=bh * tq * tk),
-        interpret=interpret,
-    )(seed_arr, k, qt, q, dot_, do, v, lse_r, delta_r)
-    return dq, dk, dv
+    # dK/dV: one program per (key block, kv head); the group's query heads
+    # are one block [group, Tq, d] of the [BH/group, group, Tq, d] view
+    q_grp = pl.BlockSpec((None, group, tq_pad, dp), lambda j, c: (c, 0, 0, 0))
+    row_grp = pl.BlockSpec((None, group, tq_pad), lambda j, c: (c, 0, 0))
+    kv_blk = pl.BlockSpec((None, bk, dp), lambda j, c: (c, j, 0))
+    dk, dv = _call(
+        functools.partial(_dkv_kernel, nq=nq, group=group, **common),
+        (nk, nkv),
+        [seed_spec, q_grp, kv_blk, kv_blk, q_grp, row_grp, row_grp],
+        [kv_blk, kv_blk],
+        [jax.ShapeDtypeStruct((nkv, tk_pad, dp), k.dtype),
+         jax.ShapeDtypeStruct((nkv, tk_pad, dp), v.dtype)],
+        warps, stages, interpret, "flash_attention_dkv",
+    )(_seed_arr(seed), qp.reshape(nkv, group, tq_pad, dp), kp, vp,
+      dop.reshape(nkv, group, tq_pad, dp),
+      lsep.reshape(nkv, group, tq_pad), deltap.reshape(nkv, group, tq_pad))
+    return dq[:, :tq, :d], dk[:, :tk, :d], dv[:, :tk, :d]
 
 
-# ---------------------------------------------------------- XLA fallback
+# ------------------------------------------------------------- XLA twin
+#
+# Same math on the [N, G, T, d] grouped view (N = B * Hkv kv heads, G query
+# heads per kv head): the scores DO materialize here; this is the
+# correctness twin and the path below the kernels' crossover.
 
-def _full_keep_mask(seed, bh, tq, tk, dropout):
-    """[BH, Tq, Tk] keep-mask — the SAME per-(head, q, k) hash the Pallas
-    kernels replay tile-by-tile, evaluated over the whole plane (the XLA
-    fallback materializes scores anyway)."""
-    return _tile_keep_mask(seed, 0, 0, 0, bh, tq, tk, tq, tk,
-                           _keep_thresh(dropout))
-
-
-def _fwd_xla(q, k, v, scale, causal, dropout=0.0, seed=None, window=None):
-    """Identical math (incl. the saved logsumexp) in plain XLA — the CPU /
-    odd-shape path. Scores DO materialize here; this is the correctness
-    twin, not the fast path."""
-    s = jnp.einsum("bqd,bkd->bqk", q, k,
-                   preferred_element_type=jnp.float32) * scale
+def _scores(q, k, scale, causal, window):
+    s = jnp.einsum("ngqd,nkd->ngqk", q, k,
+                   preferred_element_type=jnp.float32,
+                   precision=kernels.dot_precision(q.dtype)) * scale
     if causal:
-        s = jnp.where(band_mask(q.shape[1], window), s, _NEG_INF)
-    m = jnp.max(s, axis=2, keepdims=True)
+        s = jnp.where(band_mask(q.shape[2], window), s, _NEG_INF)
+    return s
+
+
+def _twin_keep(seed, q, tk, dropout):
+    n, g, tq = q.shape[:3]
+    return plane_keep_mask(seed, n * g, tq, tk, dropout).reshape(
+        n, g, tq, tk)
+
+
+def _fwd_xla(q, k, v, scale, causal, dropout, seed, window):
+    prec = kernels.dot_precision(q.dtype)
+    s = _scores(q, k, scale, causal, window)
+    m = jnp.max(s, axis=-1, keepdims=True)
     p = jnp.exp(s - m)
-    l = jnp.sum(p, axis=2, keepdims=True)
+    l = jnp.sum(p, axis=-1, keepdims=True)
     if dropout > 0.0:
-        keep = _full_keep_mask(seed, q.shape[0], q.shape[1], k.shape[1],
-                               dropout)
+        keep = _twin_keep(seed, q, k.shape[1], dropout)
         p = jnp.where(keep, p, 0.0) * (1.0 / (1.0 - dropout))
-    o = jnp.einsum("bqk,bkd->bqd", p.astype(q.dtype), v,
-                   preferred_element_type=jnp.float32) / l
-    return o.astype(q.dtype), m + jnp.log(l)
+    o = jnp.einsum("ngqk,nkd->ngqd", p.astype(v.dtype), v,
+                   preferred_element_type=jnp.float32, precision=prec) / l
+    return o.astype(q.dtype), (m + jnp.log(l))[..., 0]
 
 
-def _bwd_xla(q, k, v, do, lse, delta, scale, causal, dropout=0.0,
-             seed=None, window=None):
-    s = jnp.einsum("bqd,bkd->bqk", q, k,
-                   preferred_element_type=jnp.float32) * scale
-    if causal:
-        s = jnp.where(band_mask(q.shape[1], window), s, _NEG_INF)
-    p = jnp.exp(s - lse)
-    dp = jnp.einsum("bqd,bkd->bqk", do, v,
-                    preferred_element_type=jnp.float32)
+def _bwd_xla(q, k, v, do, lse, delta, scale, causal, dropout, seed, window):
+    prec = kernels.dot_precision(q.dtype)
+    s = _scores(q, k, scale, causal, window)
+    p = jnp.exp(s - lse[..., None])
+    dp = jnp.einsum("ngqd,nkd->ngqk", do, v,
+                    preferred_element_type=jnp.float32, precision=prec)
     if dropout > 0.0:
-        keep = _full_keep_mask(seed, q.shape[0], q.shape[1], k.shape[1],
-                               dropout)
+        keep = _twin_keep(seed, q, k.shape[1], dropout)
         inv = 1.0 / (1.0 - dropout)
         pd = jnp.where(keep, p, 0.0) * inv
         dp = jnp.where(keep, dp, 0.0) * inv
     else:
         pd = p
-    dv = jnp.einsum("bqk,bqd->bkd", pd.astype(q.dtype), do,
-                    preferred_element_type=jnp.float32)
-    ds = (p * (dp - delta) * scale).astype(q.dtype)
-    dq = jnp.einsum("bqk,bkd->bqd", ds, k,
-                    preferred_element_type=jnp.float32)
-    dk = jnp.einsum("bqk,bqd->bkd", ds, q,
-                    preferred_element_type=jnp.float32)
-    return dq.astype(q.dtype), dk.astype(q.dtype), dv.astype(q.dtype)
+    dv = jnp.einsum("ngqk,ngqd->nkd", pd.astype(q.dtype), do,
+                    preferred_element_type=jnp.float32, precision=prec)
+    ds = (p * (dp - delta[..., None]) * scale).astype(q.dtype)
+    dq = jnp.einsum("ngqk,nkd->ngqd", ds, k,
+                    preferred_element_type=jnp.float32, precision=prec)
+    dk = jnp.einsum("ngqk,ngqd->nkd", ds, q,
+                    preferred_element_type=jnp.float32, precision=prec)
+    return dq.astype(q.dtype), dk.astype(k.dtype), dv.astype(v.dtype)
 
 
 # ---------------------------------------------------------------- dispatch
 
-# Measured crossovers (v5e, honest 1000s-iter chained dispatches):
-# - Gridded flash kernels: XLA wins while [T, T] scores fit its VMEM
-#   working set; the kernels win once XLA round-trips scores through HBM —
-#   t=1024: fwd 740 vs 1253 us (1.7x), t=4096: fwd 2805 vs 4864, fwd+bwd
-#   9400 vs 10398 (round 4, causal d=64).
-# - Single-grid-step kernel (whole [T, T] tile resident, no online-softmax
-#   scratch; engages when _pick_block(t) == t): round-5 ATTN_SHORT_PROBE —
-#   t=512 d=64 causal fwd 128 vs 578 us (4.5x), fwd+bwd 984 vs 1531
-#   (1.56x); still loses at t<=256 (fwd 0.55-0.86x, fwd+bwd 0.34-0.36x:
-#   grid-step overhead is gone but per-dispatch kernel cost still
-#   dominates XLA's fused short-T attention). Auto-dispatch: Pallas at
-#   t >= 1024 (gridded) or t >= 512 in the single-kernel regime.
-_PALLAS_MIN_T = int(os.environ.get("TINYNN_TPU_ATTN_MIN_T", "1024"))
-_PALLAS_MIN_T_SINGLE = int(os.environ.get(
-    "TINYNN_TPU_ATTN_MIN_T_SINGLE", "512"))
+# Shortest sequence at which the kernels beat the XLA twin end to end on
+# the GPU. chip_smoke.py phase 5 on an H100 (700 W limit), float32
+# train_step: llama seq 1024 60.2 ms with the kernels vs 65.8 ms with the
+# twin, transformer seq 2048 21.2 vs 25.0 ms — but the seq-128 classifier
+# 25.1 vs 22.4 ms (the kernel lost there: fwd+bwd 360 vs 315 us). Between
+# them only isolated timings exist (seq 512: 518 vs 554 us fwd+bwd on a
+# 400 W H100), no cell, so the twin keeps those lengths.
+_KERNEL_MIN_T = 1024
+_HEAD_DIM_MAX = 128
+
+_IMPL = contextvars.ContextVar("tinynn_attention_impl", default=None)
 
 
-def _resolve_impl(impl, t, d=128):
+@contextlib.contextmanager
+def use_impl(impl):
+    """Trace every attention call inside the block with ``impl``
+    ("pallas" | "pallas_interpret" | "xla"), as if each call passed it —
+    how a whole model is compared kernel against twin."""
+    tok = _IMPL.set(impl)
+    try:
+        yield
+    finally:
+        _IMPL.reset(tok)
+
+
+def _resolve_impl(impl, t, d):
+    """The path one call takes: an explicit ``impl``, else the kernels on
+    the GPU for sequences of at least ``_KERNEL_MIN_T`` and head dims up to
+    ``_HEAD_DIM_MAX``, else the XLA twin."""
     if impl is None:
-        impl = os.environ.get("TINYNN_TPU_ATTN_IMPL")
-    if impl in ("pallas", "pallas_interpret", "xla"):
+        impl = _IMPL.get()
+    if impl is not None:
+        if impl not in ("pallas", "pallas_interpret", "xla"):
+            raise ValueError("unknown attention impl %r" % (impl,))
         return impl
-    # auto: Pallas on TPU above the measured crossover, tileable length.
-    # The single-plane regime covers every tileable t in [512, 1024]
-    # whose working set fits VMEM (8-stream = backward-conservative
-    # estimate so fwd and bwd route together); the gridded kernels take
-    # t >= 1024 beyond it.
-    if (kernels._default_backend() == "tpu"
-            and not os.environ.get("TINYNN_TPU_DISABLE_PALLAS")
-            and _pick_block(t) is not None
-            and (t >= _PALLAS_MIN_T
-                 or (t >= _PALLAS_MIN_T_SINGLE
-                     and _single_plane_ok(t, t, d, n_streams=8)))):
+    if (jax.default_backend() == "gpu" and t >= _KERNEL_MIN_T
+            and d <= _HEAD_DIM_MAX):
         return "pallas"
     return "xla"
-
-
-def _fold(x):
-    b, h, t, d = x.shape
-    return x.reshape(b * h, t, d)
 
 
 def _norm_window(window, causal, t):
@@ -988,29 +556,23 @@ def _norm_window(window, causal, t):
     return None if window >= t else window
 
 
-def _group_seed(seed, gi):
-    """Decorrelate GQA group ``gi``'s in-kernel dropout stream (the hash
-    indexes heads within one call; two group calls would otherwise share
-    streams)."""
-    if seed is None:
-        return None
-    return (jnp.asarray(seed).astype(jnp.uint32)
-            + jnp.uint32((gi * 2654435761) % (2 ** 32)))
+def _check_heads(h, hkv):
+    if h % hkv:
+        raise ValueError("GQA needs kv heads (%d) to divide query heads (%d)"
+                         % (hkv, h))
+    return h // hkv
 
 
 def mha_fwd(q, k, v, causal=False, scale=None, impl=None,
             dropout_rate=0.0, dropout_seed=None, window=None):
     """softmax(Q K^T * scale [+ causal mask]) V. Q: [B, H, Tq, d];
-    K/V: [B, H, Tk, d] (cross-attention allowed; ``causal`` requires
+    K/V: [B, Hkv, Tk, d] (cross-attention allowed; ``causal`` requires
     Tq == Tk). Returns (o [B,H,Tq,d], lse [B,H,Tq,1] f32) — lse is the
     per-row logsumexp of the scaled scores, consumed by mha_bwd.
 
     GROUPED-QUERY ATTENTION: K/V may carry FEWER heads (Hkv | H; query
-    head j reads kv head j // (H/Hkv)) — the call then loops one kernel
-    launch per query group against the SHARED K/V, so the repeated
-    [B, H, T, d] K/V never materializes (a broadcast fed to a Pallas call
-    would be forced concrete in HBM). Callers that consume K/V multiple
-    ways (ring attention's hops) inherit this for free.
+    head j reads kv head j // (H/Hkv)); the repeated K/V never
+    materializes.
 
     ``dropout_rate``/``dropout_seed``: attention-probability dropout with
     an in-kernel counter-hash mask — no [T, T] mask tensor exists anywhere;
@@ -1018,53 +580,31 @@ def mha_fwd(q, k, v, causal=False, scale=None, impl=None,
     seed) pair. The seed is a uint32 scalar (python int or traced).
 
     ``window``: SLIDING-WINDOW attention (requires ``causal``): position
-    p attends keys in (p - window, p]. The gridded kernels skip both the
-    compute AND the DMA of tiles outside the band (same block-index
-    clamping as the causal skip), so cost is O(T * window) instead of
-    O(T^2); the resident-plane kernels and the XLA fallback mask in
-    place. ``window >= t`` is a no-op (dropped to None)."""
+    p attends keys in (p - window, p]. The kernels visit only in-band
+    tiles, so cost is O(T * window) instead of O(T^2); the XLA twin masks
+    in place. ``window >= t`` is a no-op (dropped to None)."""
     b, h, t, d = q.shape
-    window = _norm_window(window, causal, t)
-    hkv = k.shape[1]
-    if hkv != h:
-        if h % hkv:
-            raise ValueError(
-                "GQA needs kv heads (%d) to divide query heads (%d)"
-                % (hkv, h))
-        group = h // hkv
-        qg = q.reshape(b, hkv, group, t, d)
-        os_, lses = [], []
-        for gi in range(group):
-            o_g, lse_g = mha_fwd(qg[:, :, gi], k, v, causal=causal,
-                                 scale=scale, impl=impl,
-                                 dropout_rate=dropout_rate,
-                                 dropout_seed=_group_seed(dropout_seed, gi),
-                                 window=window)
-            os_.append(o_g)
-            lses.append(lse_g)
-        return (jnp.stack(os_, axis=2).reshape(b, h, t, d),
-                jnp.stack(lses, axis=2).reshape(b, h, t, 1))
-    tk = k.shape[2]
+    hkv, tk = k.shape[1], k.shape[2]
+    group = _check_heads(h, hkv)
     if causal and tk != t:
         raise ValueError("causal attention requires Tq == Tk, got %d vs %d"
                          % (t, tk))
+    window = _norm_window(window, causal, t)
     if scale is None:
         scale = 1.0 / np.sqrt(d)
     dropout_rate = float(dropout_rate)
     impl = _resolve_impl(impl, max(t, tk), d)
-    if impl == "pallas" and (_pick_block(t) is None
-                             or _pick_block(tk) is None):
-        impl = "xla"  # no lane-aligned tiling exists for these lengths
-    qf, kf, vf = _fold(q), _fold(k), _fold(v)
     if impl == "xla":
-        o, lse = _fwd_xla(qf, kf, vf, scale, causal,
-                          dropout=dropout_rate, seed=dropout_seed,
-                          window=window)
+        o, lse = _fwd_xla(q.reshape(b * hkv, group, t, d),
+                          k.reshape(b * hkv, tk, d),
+                          v.reshape(b * hkv, tk, d), scale, causal,
+                          dropout_rate, dropout_seed, window)
     else:
-        o, lse = _fwd_pallas(qf, jnp.swapaxes(kf, 1, 2), vf, scale, causal,
-                             interpret=(impl == "pallas_interpret"),
-                             dropout=dropout_rate, seed=dropout_seed,
-                             window=window)
+        o, lse = _fwd_triton(q.reshape(b * h, t, d),
+                             k.reshape(b * hkv, tk, d),
+                             v.reshape(b * hkv, tk, d), group, scale,
+                             causal, window, dropout_rate, dropout_seed,
+                             interpret=(impl == "pallas_interpret"))
     return o.reshape(b, h, t, d), lse.reshape(b, h, t, 1)
 
 
@@ -1072,60 +612,32 @@ def mha_bwd(q, k, v, o, lse, do, causal=False, scale=None, impl=None,
             dropout_rate=0.0, dropout_seed=None, window=None):
     """Hand-written VJP of mha_fwd (recompute scheme; see module docstring).
     Returns (dq, dk, dv) in the operands' shapes. Pass the SAME
-    dropout_rate/dropout_seed as the forward — the keep mask is replayed
-    in-kernel from the hash, never stored. GQA (fewer K/V heads): loops
-    per query group like mha_fwd, ACCUMULATING dk/dv across groups —
-    exactly the reduction a repeated-KV unbroadcast would perform.
-    Pass the forward's ``window`` too — the recompute masks must match."""
+    dropout_rate/dropout_seed/window as the forward — the keep mask and
+    the band are replayed, never stored. Under GQA dk/dv sum over each kv
+    head's query group — exactly the reduction a repeated-KV unbroadcast
+    would perform."""
     b, h, t, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = _check_heads(h, hkv)
     window = _norm_window(window, causal, t)
-    hkv = k.shape[1]
-    if hkv != h:
-        group = h // hkv
-        qg = q.reshape(b, hkv, group, t, d)
-        og = o.reshape(b, hkv, group, t, d)
-        lseg = lse.reshape(b, hkv, group, t, 1)
-        dog = do.reshape(b, hkv, group, t, d)
-        dqs, dk_acc, dv_acc = [], None, None
-        for gi in range(group):
-            dq_g, dk_g, dv_g = mha_bwd(
-                qg[:, :, gi], k, v, og[:, :, gi], lseg[:, :, gi],
-                dog[:, :, gi], causal=causal, scale=scale, impl=impl,
-                dropout_rate=dropout_rate,
-                dropout_seed=_group_seed(dropout_seed, gi),
-                window=window)
-            dqs.append(dq_g)
-            dk_acc = dk_g if dk_acc is None else dk_acc + dk_g
-            dv_acc = dv_g if dv_acc is None else dv_acc + dv_g
-        return (jnp.stack(dqs, axis=2).reshape(b, h, t, d),
-                dk_acc, dv_acc)
-    tk = k.shape[2]
     if scale is None:
         scale = 1.0 / np.sqrt(d)
     dropout_rate = float(dropout_rate)
     impl = _resolve_impl(impl, max(t, tk), d)
-    if impl == "pallas" and (_pick_block(t) is None
-                             or _pick_block(tk) is None):
-        impl = "xla"
-    qf, kf, vf = _fold(q), _fold(k), _fold(v)
-    of, dof = _fold(o), _fold(do)
-    lsef = lse.reshape(b * h, t, 1)
-    delta = jnp.sum(dof.astype(jnp.float32) * of.astype(jnp.float32),
-                    axis=2, keepdims=True)
+    delta = jnp.sum(do.astype(jnp.float32) * o.astype(jnp.float32), axis=-1)
+    lse = lse.reshape(b, h, t)
     if impl == "xla":
-        dq, dk, dv = _bwd_xla(qf, kf, vf, dof, lsef, delta, scale, causal,
-                              dropout=dropout_rate, seed=dropout_seed,
-                              window=window)
+        dq, dk, dv = _bwd_xla(
+            q.reshape(b * hkv, group, t, d), k.reshape(b * hkv, tk, d),
+            v.reshape(b * hkv, tk, d), do.reshape(b * hkv, group, t, d),
+            lse.reshape(b * hkv, group, t), delta.reshape(b * hkv, group, t),
+            scale, causal, dropout_rate, dropout_seed, window)
     else:
-        kt = jnp.swapaxes(kf, 1, 2)
-        vt = jnp.swapaxes(vf, 1, 2)
-        qt = jnp.swapaxes(qf, 1, 2)
-        dot_ = jnp.swapaxes(dof, 1, 2)
-        lse_r = jnp.swapaxes(lsef, 1, 2)       # [BH, 1, T]
-        delta_r = jnp.swapaxes(delta, 1, 2)    # [BH, 1, T]
-        dq, dk, dv = _bwd_pallas(
-            qf, kt, kf, vt, vf, qt, dot_, dof, lsef, lse_r, delta, delta_r,
-            scale, causal, interpret=(impl == "pallas_interpret"),
-            dropout=dropout_rate, seed=dropout_seed, window=window)
-    return (dq.reshape(b, h, t, d), dk.reshape(b, h, tk, d),
-            dv.reshape(b, h, tk, d))
+        dq, dk, dv = _bwd_triton(
+            q.reshape(b * h, t, d), k.reshape(b * hkv, tk, d),
+            v.reshape(b * hkv, tk, d), do.reshape(b * h, t, d),
+            lse.reshape(b * h, t), delta.reshape(b * h, t), group, scale,
+            causal, window, dropout_rate, dropout_seed,
+            interpret=(impl == "pallas_interpret"))
+    return (dq.reshape(b, h, t, d), dk.reshape(b, hkv, tk, d),
+            dv.reshape(b, hkv, tk, d))

@@ -1,52 +1,21 @@
-"""Hot-path compute kernels: Pallas on TPU, XLA-native elsewhere.
+"""The matmul every tape primitive routes through, and its precision mode.
 
 The FLOP sink of the whole framework is matmul (forward + both VJPs of
 ``dot_`` — the reference spends its time in np.matmul at core/ops.py:151,
-157, 160). On TPU we run it through a tiled Pallas kernel that keeps the MXU
-fed from VMEM with an fp32 accumulator; on CPU (tests, simulated meshes) we
-fall back to XLA's native dot, and the Pallas path is still exercised in
-interpret mode by the test suite.
+157, 160). ``matmul`` hands it to XLA, which on the GPU calls cuBLAS /
+cuBLASLt and autotunes the choice; the precision mode decides what the
+operands are:
 
-Dispatch policy
----------------
-``matmul(a, b)`` uses the Pallas kernel when:
-  - the default backend is TPU (or ``TINYNN_TPU_FORCE_PALLAS=1``),
-  - both operands are 2-D floats, and
-  - the problem is big enough that tiling pays for itself.
-Everything else goes to ``jnp.matmul`` with an explicit fp32
-``preferred_element_type`` so the MXU never silently accumulates in bf16.
+- ``"f32"`` (default): float32 operands at ``Precision.HIGHEST``, so the
+  GPU does not silently round them to TF32 — exact reference parity.
+- ``"bf16"``: operands cast to bfloat16 for the tensor cores' fast path,
+  accumulated in float32.
 """
-
-import contextlib
-import contextvars
-import functools
-import os
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-# Set while tracing code that already lives INSIDE a Pallas kernel (the
-# fused-epoch megakernel): primitives must then lower to plain Mosaic ops,
-# never to a nested pallas_call.
-_IN_KERNEL = contextvars.ContextVar("tinynn_in_kernel", default=False)
-
-
-@contextlib.contextmanager
-def kernel_mode():
-    tok = _IN_KERNEL.set(True)
-    try:
-        yield
-    finally:
-        _IN_KERNEL.reset(tok)
-
-
-# Matmul input precision: "f32" (default, exact reference parity) or "bf16"
-# (cast operands to bfloat16 for the MXU's fast path, accumulate in fp32 —
-# the standard TPU mixed-precision recipe). Settable via env
-# TINYNN_TPU_MATMUL_PRECISION or set_matmul_precision().
-_MATMUL_PRECISION = os.environ.get("TINYNN_TPU_MATMUL_PRECISION", "f32")
+_MATMUL_PRECISION = "f32"
 
 
 def set_matmul_precision(mode):
@@ -61,6 +30,14 @@ def matmul_precision():
     return _MATMUL_PRECISION
 
 
+def dot_precision(dtype):
+    """The ``precision=`` a float32 product states: HIGHEST (no TF32
+    rounding) for float32 operands, the default for narrower ones."""
+    if jnp.dtype(dtype) == jnp.float32:
+        return jax.lax.Precision.HIGHEST
+    return None
+
+
 def _cast_inputs(a, b):
     if (_MATMUL_PRECISION == "bf16"
             and jnp.issubdtype(a.dtype, jnp.floating)
@@ -68,140 +45,14 @@ def _cast_inputs(a, b):
         return a.astype(jnp.bfloat16), b.astype(jnp.bfloat16), jnp.float32
     return a, b, None
 
-# Flip to force-enable/disable the Pallas path (tests use interpret mode).
-_FORCE = os.environ.get("TINYNN_TPU_FORCE_PALLAS")
-_DISABLE = os.environ.get("TINYNN_TPU_DISABLE_PALLAS")
-
-# Minimum problem size (in MXU tiles) before tiling beats plain XLA dot.
-_MIN_PALLAS_ELEMS = 128 * 128
-# ... and the maximum operand size past which XLA's own dot wins (2M
-# elements ~= between 1024^2 where the kernel still holds its own and
-# 2048^2+ where XLA is up to 2.2x faster; see BENCHMARKS.md walls).
-_MAX_PALLAS_WEIGHT_ELEMS = int(os.environ.get(
-    "TINYNN_TPU_PALLAS_MAX_ELEMS", str(2 * 1024 * 1024)))
-
-
-@functools.cache
-def _default_backend():
-    try:
-        return jax.default_backend()
-    except Exception:  # pragma: no cover - no backend at all
-        return "cpu"
-
-
-def _use_pallas(a, b):
-    if _DISABLE:
-        return False
-    if a.ndim != 2 or b.ndim != 2:
-        return False
-    if not (
-        jnp.issubdtype(a.dtype, jnp.floating)
-        and jnp.issubdtype(b.dtype, jnp.floating)
-    ):
-        return False
-    m, k = a.shape
-    _, n = b.shape
-    if m * n < _MIN_PALLAS_ELEMS or k < 8:
-        return False
-    if _FORCE:
-        return True
-    # Upper cutoff (measured v5e, round 3): XLA's native dot overtakes this
-    # tiled kernel as the weight matrix grows — at [512,4096]x[4096,4096]
-    # XLA sustains 92 TFLOP/s vs the kernel's 41, while at [128,256]x
-    # [256,256] the kernel is ~12% faster on the scanned deep-MLP path and
-    # at 1024^2 it still holds ~51 TFLOP/s. Route big operands to XLA.
-    if k * n > _MAX_PALLAS_WEIGHT_ELEMS or m * k > _MAX_PALLAS_WEIGHT_ELEMS:
-        return False
-    return _default_backend() == "tpu"
-
-
-def _round_up(x, m):
-    return ((x + m - 1) // m) * m
-
-
-def _mm_kernel(a_ref, b_ref, o_ref, acc_ref):
-    """One (bm, bn) output tile; the k grid axis accumulates partial products
-    into an fp32 VMEM scratch, written out on the last k step."""
-
-    @pl.when(pl.program_id(2) == 0)
-    def _init():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    acc_ref[:] += jnp.dot(
-        a_ref[:], b_ref[:], preferred_element_type=jnp.float32
-    )
-
-    @pl.when(pl.program_id(2) == pl.num_programs(2) - 1)
-    def _store():
-        o_ref[:] = acc_ref[:].astype(o_ref.dtype)
-
-
-def _pick_block(dim, target):
-    return min(_round_up(dim, 128), target)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def pallas_matmul(a, b, interpret=False):
-    """Tiled MXU matmul: C[M,N] = A[M,K] @ B[K,N], fp32 accumulation.
-
-    Inputs are zero-padded up to (128, 128)-aligned shapes (zero rows/cols
-    contribute nothing to the product), tiled over a (M/bm, N/bn, K/bk) grid
-    with the k axis innermost ("arbitrary") so each output tile's accumulator
-    stays resident in VMEM across the K loop.
-    """
-    m, k = a.shape
-    k2, n = b.shape
-    assert k == k2, (a.shape, b.shape)
-    out_dtype = jnp.promote_types(a.dtype, b.dtype)
-
-    bm = _pick_block(m, 256)
-    bn = _pick_block(n, 256)
-    bk = _pick_block(k, 512)
-
-    mp, kp, np_ = _round_up(m, bm), _round_up(k, bk), _round_up(n, bn)
-    a_p = jnp.pad(a, ((0, mp - m), (0, kp - k))) if (mp, kp) != (m, k) else a
-    b_p = jnp.pad(b, ((0, kp - k), (0, np_ - n))) if (kp, np_) != (k, n) else b
-
-    grid = (mp // bm, np_ // bn, kp // bk)
-
-    out = pl.pallas_call(
-        _mm_kernel,
-        out_shape=jax.ShapeDtypeStruct((mp, np_), out_dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((bm, bk), lambda i, j, kk: (i, kk)),
-            pl.BlockSpec((bk, bn), lambda i, j, kk: (kk, j)),
-        ],
-        out_specs=pl.BlockSpec((bm, bn), lambda i, j, kk: (i, j)),
-        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * np_ * kp,
-            bytes_accessed=(mp * kp + kp * np_ + mp * np_) * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(a_p, b_p)
-
-    if (mp, np_) != (m, n):
-        out = out[:m, :n]
-    return out
-
 
 def matmul(a, b):
-    """Platform-dispatching matmul used by the ``dot_`` primitive and its
-    VJPs. Semantics are numpy.matmul (fp32 accumulation always)."""
+    """Matmul used by the ``dot_`` primitive and its VJPs. Semantics are
+    numpy.matmul, with float32 accumulation always."""
     a, b, forced_out = _cast_inputs(a, b)
-    if _IN_KERNEL.get():
-        # already inside a Pallas kernel: straight to the MXU
-        return jnp.matmul(a, b, preferred_element_type=jnp.float32)
-    if _use_pallas(a, b):
-        out = pallas_matmul(a, b)
-        return out.astype(forced_out) if forced_out is not None else out
     out_t = forced_out if forced_out is not None else _acc_type(a, b)
-    return jnp.matmul(a, b, preferred_element_type=out_t)
+    return jnp.matmul(a, b, preferred_element_type=out_t,
+                      precision=dot_precision(jnp.result_type(a, b)))
 
 
 def _acc_type(a, b):

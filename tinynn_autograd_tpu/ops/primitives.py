@@ -1,11 +1,11 @@
 """Differentiable primitives: forward on device + hand-written VJP closures.
 
-TPU-native redesign of the reference op set (reference: core/ops.py). Each
+Redesign of the reference op set (reference: core/ops.py) for XLA. Each
 primitive computes its forward value with XLA-staged jax.numpy calls (the hot
-matmul path dispatches to a Pallas kernel on TPU — see
-``tinynn_autograd_tpu.ops.kernels``) and registers hand-written VJP closures on
-the output Tensor. ``jax.grad`` is NOT used anywhere; reverse-mode is our own
-tape (see ``core/tensor.py``).
+matmul path goes through ``tinynn_autograd_tpu.ops.kernels``, which states
+its precision) and registers hand-written VJP closures on the output
+Tensor. ``jax.grad`` is NOT used anywhere; reverse-mode is our own tape
+(see ``core/tensor.py``).
 
 Broadcasting semantics: every binary VJP funnels through a single
 ``unbroadcast`` helper that reproduces numpy broadcasting reduction exactly —
@@ -151,8 +151,7 @@ def dot_(ts1, ts2):
     """c = a @ b with numpy.matmul semantics (reference: core/ops.py:150-162).
 
     Extends the reference (strictly 2-D) to 1-D operands and batched N-D
-    matmul with broadcast batch dims. The 2-D fast path runs on the MXU via
-    the Pallas matmul kernel on TPU (kernels.matmul).
+    matmul with broadcast batch dims, all through kernels.matmul.
     """
     a, b = ts1.data, ts2.data
     values = kernels.matmul(a, b)
@@ -456,7 +455,7 @@ def astype_(ts, dtype):
 
 
 # --------------------------------------------------------------------------
-# fused activation / normalization primitives (TPU additions)
+# fused activation / normalization primitives (additions)
 # --------------------------------------------------------------------------
 
 def sigmoid_(ts):
@@ -588,13 +587,8 @@ def log_softmax_(ts, axis=-1):
 
 
 def _hash_bits_u32(shape, seed):
-    """Counter-based uint32 stream (murmur3-style finalizer over iota+seed).
-
-    CPU-interpret stand-in for the TPU core PRNG inside the fused-epoch
-    megakernel: pltpu.prng_* has no CPU lowering, and this keeps the
-    megakernel's dropout path executable (and statistically testable) in
-    Pallas interpret mode. Masks differ from the TPU run — dropout only
-    needs i.i.d.-looking bits, not cross-backend determinism."""
+    """Counter-based uint32 stream (murmur3-style finalizer over iota+seed):
+    i.i.d.-looking bits from a traced integer seed, no PRNG key needed."""
     n = 1
     for s in shape:
         n *= int(s)
@@ -608,8 +602,7 @@ def _hash_bits_u32(shape, seed):
 
 def _flat_iota_u32(shape):
     """Row-major flat element index as uint32, built from per-dim
-    broadcasted_iota so it lowers in BOTH XLA and Mosaic (1-D lax.iota
-    does not lower inside TPU kernels)."""
+    broadcasted_iota."""
     idx = None
     stride = 1
     for d in reversed(range(len(shape))):
@@ -629,10 +622,9 @@ def stochastic_round_cast(x, dtype, seed):
     rounding preserves them in expectation.
 
     ``seed`` may be a traced int (e.g. the step counter) — the bits come
-    from the same counter-hash used by interpret-mode dropout, built on
-    broadcasted_iota so the cast runs in every tier (eager, fused jit,
-    scanned epoch, and inside Pallas kernels). Not a tape primitive (no
-    gradient flows through optimizer state)."""
+    from a counter-hash of the element index, so the cast runs the same
+    eagerly and inside the jitted step. Not a tape primitive (no gradient
+    flows through optimizer state)."""
     if jnp.dtype(dtype) != jnp.bfloat16:
         # only the bf16 mantissa cutoff is implemented; silently degrading
         # to round-to-nearest would ignore the caller's request
@@ -641,7 +633,6 @@ def stochastic_round_cast(x, dtype, seed):
             % jnp.dtype(dtype))
     xf = x.astype(jnp.float32)
     if xf.ndim < 2:
-        # Mosaic needs >=2-D iota; tiny leaves only exist on XLA paths
         bits_r = _hash_bits_u32(xf.shape, seed)
     else:
         h = _flat_iota_u32(xf.shape)
@@ -753,8 +744,7 @@ def rope_(ts, base=10000.0, positions=None):
       y1 = x1*cos - x2*sin ;  y2 = x2*cos + x1*sin
 
     The half-split form keeps both halves CONTIGUOUS — no stride-2
-    gathers, so Mosaic/XLA lower it as two lane-aligned slices and fused
-    elementwise math (the interleaved convention would relayout on TPU).
+    gathers, so XLA lowers it as two slices and fused elementwise math.
 
     ``positions``: optional int/float [T] position ids (defaults to
     arange(T)); serving passes the absolute offset of a decoded token.
@@ -840,25 +830,11 @@ def softmax_(ts, axis=-1):
 def dropout_(ts, rate, rng):
     """Inverted dropout: zero with prob ``rate``, scale survivors by 1/(1-p).
 
-    ``rng`` is either a jax PRNG key (traced under jit, so each compiled
-    step can fold in the step counter for fresh masks), or — inside the
-    fused-epoch Pallas megakernel, where threefry isn't available — a
-    ``("pltpu_seed", int32[, interpret])`` marker that seeds the TPU core's
-    hardware PRNG (pltpu.prng_seed / prng_random_bits), or the counter-hash
-    stand-in when the kernel runs in CPU interpret mode."""
+    ``rng`` is a jax PRNG key (traced under jit, so each compiled step can
+    fold in the step counter for fresh masks)."""
     keep = 1.0 - rate
     scale = 1.0 / keep
-    if isinstance(rng, tuple) and rng[0] == "pltpu_seed":
-        if len(rng) > 2 and rng[2]:
-            bits = _hash_bits_u32(ts.shape, rng[1])
-        else:
-            from jax.experimental.pallas import tpu as pltpu
-
-            pltpu.prng_seed(rng[1])
-            bits = pltpu.bitcast(pltpu.prng_random_bits(ts.shape), jnp.uint32)
-        mask = bits < jnp.uint32(int(keep * (2 ** 32 - 1)))
-    else:
-        mask = jax.random.bernoulli(rng, p=keep, shape=ts.shape)
+    mask = jax.random.bernoulli(rng, p=keep, shape=ts.shape)
     values = jnp.where(mask, ts.data * scale, 0.0)
 
     def grad_fn(grad):
@@ -872,35 +848,30 @@ def flash_attention_(ts_q, ts_k, ts_v, causal=False, scale=None, impl=None,
     """Fused multi-head attention as ONE tape primitive:
     out = softmax(Q K^T * scale [+ causal mask]) V, Q/K/V: [B, H, T, d].
 
-    Forward and the hand-written VJPs run as flash-style Pallas kernels on
-    TPU (online softmax, O(T) memory — see ops/attention.py) with an
-    exact-math XLA fallback off-TPU. The three grad_fns share one memoized
+    Forward and the hand-written VJPs run as flash-style Triton kernels on
+    the GPU (online softmax, O(T) memory — see ops/attention.py) with an
+    exact-math XLA twin elsewhere. The three grad_fns share one memoized
     joint backward (the recompute scheme needs Q, K, V, O and the saved
     row logsumexp once per cotangent). Replaces the 4-primitive tape chain
     (dot_/softmax_/dot_) in TransformerBlock — same numerics, no [T, T]
-    HBM score tensors. No jax.grad anywhere.
+    score tensors in device memory. No jax.grad anywhere.
 
     ``dropout_rate`` > 0 applies attention-probability dropout INSIDE the
     kernels: keep decisions are a counter-hash of the absolute
-    (head, query, key) index + a seed derived from ``dropout_rng``, so the
-    recompute backward replays the exact forward mask without any [T, T]
-    mask tensor existing anywhere (HBM or VMEM beyond one tile).
-    ``dropout_rng``: a jax PRNG key (traced ok) or a
-    ``("pltpu_seed", int32[, ...])`` marker like ops.dropout_.
+    (head, query, key) index + a seed derived from ``dropout_rng`` (a jax
+    PRNG key, traced ok), so the recompute backward replays the exact
+    forward mask without any [T, T] mask tensor existing anywhere.
 
     GROUPED-QUERY ATTENTION (native): K/V may carry FEWER heads than Q
-    (Hkv dividing H; query head j reads kv head j // (H/Hkv)).
-    mha_fwd/mha_bwd then loop one kernel call per query group against the
-    SHARED K/V — the repeated [B, H, T, d] K/V never materializes in HBM
-    (a tape-level broadcast would be forced concrete by the Pallas call);
-    dK/dV accumulate across the group calls, and each group's dropout
-    stream is decorrelated by folding the group index into the seed.
+    (Hkv dividing H; query head j reads kv head j // (H/Hkv)). The
+    kernels index the shared K/V head directly and the dK/dV kernel sums
+    over its query group, so the repeated [B, H, T, d] K/V never
+    materializes.
 
     ``window``: SLIDING-WINDOW attention (requires ``causal``) — position
-    p attends only keys in (p - window, p]. The gridded kernels skip the
-    compute AND DMA of out-of-band tiles (O(T*window) cost); resident-
-    plane kernels and the XLA fallback mask in place. The recompute
-    backward applies the identical band.
+    p attends only keys in (p - window, p]. The kernels' loops visit only
+    the in-band tiles (O(T*window) cost); the XLA twin masks in place.
+    The recompute backward applies the identical band.
     """
     from tinynn_autograd_tpu.ops import attention
 
@@ -944,12 +915,9 @@ def flash_attention_(ts_q, ts_k, ts_v, causal=False, scale=None, impl=None,
 
 
 def _attn_dropout_seed(dropout_rate, dropout_rng):
-    """uint32 kernel seed from a jax key or ("pltpu_seed", int) marker;
-    None when dropout is off."""
+    """uint32 kernel seed from a jax key; None when dropout is off."""
     if dropout_rate <= 0.0:
         return None
-    if isinstance(dropout_rng, tuple) and dropout_rng[0] == "pltpu_seed":
-        return jnp.asarray(dropout_rng[1]).astype(jnp.uint32)
     if dropout_rng is None:
         from tinynn_autograd_tpu.utils import seeder
 
@@ -987,7 +955,7 @@ def conv2d_(ts_x, ts_w, stride, padding):
     """2-D convolution primitive, NHWC x HWIO -> NHWC.
 
     Forward and BOTH hand-written VJPs are single ``lax.conv_general_dilated``
-    calls (XLA lowers each straight onto the MXU):
+    calls, each handed to the backend's convolution library by XLA:
 
     - dX: transposed conv — grad (lhs-dilated by the stride) convolved with
       the spatially-flipped, io-swapped kernel.
@@ -1042,9 +1010,7 @@ def conv2d_(ts_x, ts_w, stride, padding):
 
 def maxpool2d_(ts, pool, stride):
     """2-D max pooling over NHWC as a tree of maxima over the KH*KW strided
-    window slices — no patch-stack materialization (a [N,OH,OW,KH*KW,C]
-    concat forces a lane-padded 5-D layout on TPU, ~8x physical blowup at
-    C=16).
+    window slices — no [N,OH,OW,KH*KW,C] patch stack is materialized.
 
     Tie semantics match the framework's reduce-max (and the reference's,
     reference: core/ops.py:225-230): EVERY element equal to the window max
@@ -1075,7 +1041,7 @@ def maxpool2d_(ts, pool, stride):
             # classic non-overlapping pooling: every input cell belongs to
             # exactly one window position, so the cotangent is a pure
             # interleave — two stacks + one reshape instead of KH*KW
-            # strided scatter-adds (scatters are the slow path on TPU)
+            # strided scatter-adds
             rows = [jnp.stack(r, axis=3) for r in masked]  # [N,OH,OW,kw,C]
             g = jnp.stack(rows, axis=2)                    # [N,OH,kh,OW,kw,C]
             g = g.reshape(n, oh * kh, ow * kw, c)

@@ -2,7 +2,7 @@
 
 The reference framework has no recurrent machinery at all (its only model
 family is the MLP; reference core/ops.py tops out at 2-D matmul,
-core/ops.py:150), so this module is a TPU-native addition in the same
+core/ops.py:150), so this module is an addition in the same
 spirit as ``dense_stack_``: the whole time recurrence is ONE primitive —
 forward is a single ``lax.scan`` over the time axis and the backward is
 the hand-written mirrored REVERSE scan (truncated-nowhere BPTT). No
@@ -11,13 +11,12 @@ the hand-written mirrored REVERSE scan (truncated-nowhere BPTT). No
 
 Both directions use the cuDNN-style restructuring: everything that does
 not depend on the recurrence is hoisted OUT of the scan into big batched
-MXU matmuls — forward computes the input projection for all steps as one
+matmuls — forward computes the input projection for all steps as one
 [T*B, D] x [D, G*H] matmul, backward emits the per-step gate cotangents
 from the scan and computes dWx/dWh/dX/db as three [T*B, .] matmuls after
 it. The serial chain is then exactly one [B, H] x [H, G*H] matmul per
-step each way (the recurrence's true dependency), which is what binds
-the config on TPU (BENCHMARKS.md: ~1.75us per dependent matmul at XLA
-kernel granularity).
+step each way (the recurrence's true dependency), each its own kernel
+launch inside the scan.
 
 Why one primitive instead of a Python loop of Dense ops: a T-step
 recurrence as per-step tape nodes costs O(T) trace size, O(T) XLA
@@ -26,7 +25,7 @@ compiled kernels regardless of T, with the per-step activations stacked
 by the scan itself (the standard JAX recipe — compiler-friendly control
 flow, static shapes).
 
-Layout conventions (chosen for MXU friendliness):
+Layout conventions:
 - inputs  x  : [B, T, D]   (batch-major at the API; transposed to the
                             scan's [T, B, D] internally)
 - weights wx : [D, G*H], wh: [H, G*H], bias b: [1, G*H] where G is the
@@ -39,40 +38,10 @@ Layout conventions (chosen for MXU friendliness):
   correctly).
 """
 
-import os
-
 import jax
 import jax.numpy as jnp
 
 from tinynn_autograd_tpu.ops import kernels
-
-
-def _resolve_impl(impl, T, B, H, dtype, cell="lstm"):
-    """auto -> in-kernel Pallas recurrence on TPU when the shape tiles
-    (ops/recurrent_kernel.py), XLA scan otherwise. Override per call
-    (impl=) or globally (TINYNN_TPU_RNN_IMPL = pallas | pallas_interpret
-    | xla)."""
-    if impl is None:
-        impl = os.environ.get("TINYNN_TPU_RNN_IMPL")
-    from tinynn_autograd_tpu.ops import recurrent_kernel as rk
-
-    tiles = rk.pickable if cell == "lstm" else rk.gru_pickable
-    if impl in ("pallas", "pallas_interpret", "xla"):
-        if impl != "xla" and not (rk.supports(B, H, dtype)
-                                  and tiles(T, B, H)):
-            raise ValueError(
-                "recurrent pallas kernel cannot tile this %s: T=%d B=%d "
-                "H=%d dtype=%s — needs f32, B%%8==0, H%%128==0, and a "
-                "time-chunk within TINYNN_RNN_VMEM_BUDGET_MB (%.0f MB); "
-                "drop the forced impl to fall back to the XLA scan."
-                % (cell, T, B, H, dtype, rk._VMEM_BUDGET / 2 ** 20))
-        return impl
-    if (kernels._default_backend() == "tpu"
-            and not os.environ.get("TINYNN_TPU_DISABLE_PALLAS")
-            and rk.supports(B, H, dtype)
-            and tiles(T, B, H)):
-        return "pallas"
-    return "xla"
 
 
 def _sigmoid(x):
@@ -89,8 +58,7 @@ def _split3(z):
     return z[..., :h], z[..., h:2 * h], z[..., 2 * h:]
 
 
-def lstm_scan_(ts_x, ts_wx, ts_wh, ts_b, h0=None, c0=None, reverse=False,
-               impl=None):
+def lstm_scan_(ts_x, ts_wx, ts_wh, ts_b, h0=None, c0=None, reverse=False):
     """LSTM over [B, T, D] -> hidden sequence [B, T, H] as one tape edge.
 
     Cell (gate order i, f, g, o; f32 math):
@@ -122,37 +90,28 @@ def lstm_scan_(ts_x, ts_wx, ts_wh, ts_b, h0=None, c0=None, reverse=False,
     xt = jnp.swapaxes(x, 0, 1)  # [T, B, D]
 
     # hoist the input projection out of the scan: ONE [T*B, D] x [D, 4H]
-    # MXU matmul for all steps (the cuDNN-style restructuring) — only the
+    # matmul for all steps (the cuDNN-style restructuring) — only the
     # [B, H] x [H, 4H] hidden matmul remains on the serial chain, halving
     # the dependent-matmul count per step
     xp = (kernels.matmul(xt.reshape(T * B, D), wx) + b).reshape(T, B, 4 * H)
 
-    # both impls save the SAME minimal activation set — hs, cs, and the
-    # packed gates [T, B, 4H]; h/c entering step t are one-step time
-    # shifts of the emitted stacks, derived (not stored) in the backward
-    impl = _resolve_impl(impl, T, B, H, x.dtype)
-    interp = impl == "pallas_interpret"
-    if impl != "xla":
-        from tinynn_autograd_tpu.ops import recurrent_kernel as rk
+    # the scan saves the minimal activation set — hs, cs, and the packed
+    # gates [T, B, 4H]; h/c entering step t are one-step time shifts of
+    # the emitted stacks, derived (not stored) in the backward
+    def fwd_body(carry, xp_t):
+        h_prev, c_prev = carry
+        z = xp_t + kernels.matmul(h_prev, wh)
+        zi, zf, zg, zo = _split4(z)
+        i = _sigmoid(zi)
+        f = _sigmoid(zf)
+        g = jnp.tanh(zg)
+        o = _sigmoid(zo)
+        c = f * c_prev + i * g
+        h = o * jnp.tanh(c)
+        return (h, c), (h, c, jnp.concatenate([i, f, g, o], axis=-1))
 
-        hs, cs, gates = rk.lstm_fwd_pallas(xp, wh, h0a, c0a,
-                                           reverse=reverse,
-                                           interpret=interp)
-    else:
-        def fwd_body(carry, xp_t):
-            h_prev, c_prev = carry
-            z = xp_t + kernels.matmul(h_prev, wh)
-            zi, zf, zg, zo = _split4(z)
-            i = _sigmoid(zi)
-            f = _sigmoid(zf)
-            g = jnp.tanh(zg)
-            o = _sigmoid(zo)
-            c = f * c_prev + i * g
-            h = o * jnp.tanh(c)
-            return (h, c), (h, c, jnp.concatenate([i, f, g, o], axis=-1))
-
-        (_, _), (hs, cs, gates) = jax.lax.scan(
-            fwd_body, (h0a, c0a), xp, reverse=reverse)
+    (_, _), (hs, cs, gates) = jax.lax.scan(
+        fwd_body, (h0a, c0a), xp, reverse=reverse)
     out = jnp.swapaxes(hs, 0, 1)       # [B, T, H]
 
     def joint_bwd(grad):
@@ -163,40 +122,33 @@ def lstm_scan_(ts_x, ts_wx, ts_wh, ts_b, h0=None, c0=None, reverse=False,
         else:
             cprev = jnp.concatenate([c0a[None], cs[:-1]], axis=0)
             hprev = jnp.concatenate([h0a[None], hs[:-1]], axis=0)
-        if impl != "xla":
-            from tinynn_autograd_tpu.ops import recurrent_kernel as rk
+        zeros_bh = jnp.zeros((B, H), x.dtype)
 
-            dzs, dh0, dc0 = rk.lstm_bwd_pallas(gt, gates, cs, cprev,
-                                               wh.T, reverse=reverse,
-                                               interpret=interp)
-        else:
-            zeros_bh = jnp.zeros((B, H), x.dtype)
+        # the scan carries only (dh, dc) and emits dz per step — ONE
+        # serial matmul (dz @ wh.T) on the chain; the weight/input/bias
+        # cotangents are three big batched matmuls AFTER it
+        def bwd_body(carry, step):
+            dh_next, dc_next = carry
+            g_t, c_, cp, g4 = step
+            i, f = g4[..., :H], g4[..., H:2 * H]
+            g_, o = g4[..., 2 * H:3 * H], g4[..., 3 * H:]
+            tc = jnp.tanh(c_)
+            dh = g_t + dh_next
+            do = dh * tc
+            dc = dh * o * (1.0 - tc * tc) + dc_next
+            di = dc * g_
+            dg = dc * i
+            df = dc * cp
+            dz = jnp.concatenate(
+                [di * i * (1.0 - i),
+                 df * f * (1.0 - f),
+                 dg * (1.0 - g_ * g_),
+                 do * o * (1.0 - o)], axis=-1)
+            return (kernels.matmul(dz, wh.T), dc * f), dz
 
-            # the scan carries only (dh, dc) and emits dz per step — ONE
-            # serial matmul (dz @ wh.T) on the chain; the weight/input/
-            # bias cotangents are three big batched matmuls AFTER it
-            def bwd_body(carry, step):
-                dh_next, dc_next = carry
-                g_t, c_, cp, g4 = step
-                i, f = g4[..., :H], g4[..., H:2 * H]
-                g_, o = g4[..., 2 * H:3 * H], g4[..., 3 * H:]
-                tc = jnp.tanh(c_)
-                dh = g_t + dh_next
-                do = dh * tc
-                dc = dh * o * (1.0 - tc * tc) + dc_next
-                di = dc * g_
-                dg = dc * i
-                df = dc * cp
-                dz = jnp.concatenate(
-                    [di * i * (1.0 - i),
-                     df * f * (1.0 - f),
-                     dg * (1.0 - g_ * g_),
-                     do * o * (1.0 - o)], axis=-1)
-                return (kernels.matmul(dz, wh.T), dc * f), dz
-
-            (dh0, dc0), dzs = jax.lax.scan(
-                bwd_body, (zeros_bh, zeros_bh), (gt, cs, cprev, gates),
-                reverse=not reverse)
+        (dh0, dc0), dzs = jax.lax.scan(
+            bwd_body, (zeros_bh, zeros_bh), (gt, cs, cprev, gates),
+            reverse=not reverse)
         dz_flat = dzs.reshape(T * B, 4 * H)
         dxs = kernels.matmul(dz_flat, wx.T).reshape(T, B, D)
         dwx = kernels.matmul(xt.reshape(T * B, D).T, dz_flat)
@@ -208,7 +160,7 @@ def lstm_scan_(ts_x, ts_wx, ts_wh, ts_b, h0=None, c0=None, reverse=False,
         ts_x, ts_wx, ts_wh, ts_b, h0, c0, out, joint_bwd)
 
 
-def gru_scan_(ts_x, ts_wx, ts_wh, ts_b, h0=None, reverse=False, impl=None):
+def gru_scan_(ts_x, ts_wx, ts_wh, ts_b, h0=None, reverse=False):
     """GRU over [B, T, D] -> hidden sequence [B, T, H] as one tape edge.
 
     Cell (gate order z, r, n; the single-bias formulation — the reset
@@ -235,29 +187,20 @@ def gru_scan_(ts_x, ts_wx, ts_wh, ts_b, h0=None, reverse=False, impl=None):
     # ONE [T*B, D] x [D, 3H] matmul; only h @ wh stays on the serial chain
     ap = (kernels.matmul(xt.reshape(T * B, D), wx) + b).reshape(T, B, 3 * H)
 
-    # both impls save the SAME minimal set — hs, packed (z, r, n) gates,
-    # and un (the reset-gated hidden contribution); h entering step t is
-    # a one-step time shift of hs, derived (not stored) in the backward
-    impl = _resolve_impl(impl, T, B, H, x.dtype, cell="gru")
-    interp = impl == "pallas_interpret"
-    if impl != "xla":
-        from tinynn_autograd_tpu.ops import recurrent_kernel as rk
+    # the scan saves the minimal set — hs, packed (z, r, n) gates, and un
+    # (the reset-gated hidden contribution); h entering step t is a
+    # one-step time shift of hs, derived (not stored) in the backward
+    def fwd_body(h_prev, a_t):
+        u = kernels.matmul(h_prev, wh)
+        az, ar, an = _split3(a_t)
+        uz, ur, un = _split3(u)
+        z = _sigmoid(az + uz)
+        r = _sigmoid(ar + ur)
+        n = jnp.tanh(an + r * un)
+        h = (1.0 - z) * n + z * h_prev
+        return h, (h, jnp.concatenate([z, r, n], axis=-1), un)
 
-        hs, gates, un_s = rk.gru_fwd_pallas(ap, wh, h0a, reverse=reverse,
-                                            interpret=interp)
-    else:
-        def fwd_body(h_prev, a_t):
-            u = kernels.matmul(h_prev, wh)
-            az, ar, an = _split3(a_t)
-            uz, ur, un = _split3(u)
-            z = _sigmoid(az + uz)
-            r = _sigmoid(ar + ur)
-            n = jnp.tanh(an + r * un)
-            h = (1.0 - z) * n + z * h_prev
-            return h, (h, jnp.concatenate([z, r, n], axis=-1), un)
-
-        _, (hs, gates, un_s) = jax.lax.scan(fwd_body, h0a, ap,
-                                            reverse=reverse)
+    _, (hs, gates, un_s) = jax.lax.scan(fwd_body, h0a, ap, reverse=reverse)
     out = jnp.swapaxes(hs, 0, 1)
 
     def joint_bwd(grad):
@@ -266,37 +209,29 @@ def gru_scan_(ts_x, ts_wx, ts_wh, ts_b, h0=None, reverse=False, impl=None):
             hprev = jnp.concatenate([hs[1:], h0a[None]], axis=0)
         else:
             hprev = jnp.concatenate([h0a[None], hs[:-1]], axis=0)
-        if impl != "xla":
-            from tinynn_autograd_tpu.ops import recurrent_kernel as rk
+        zeros_bh = jnp.zeros((B, H), x.dtype)
 
-            das, dus, dh0 = rk.gru_bwd_pallas(gt, hprev, gates, un_s,
-                                              wh.T, reverse=reverse,
-                                              interpret=interp)
-        else:
-            zeros_bh = jnp.zeros((B, H), x.dtype)
+        # scan emits (da, du) per step; dwx/dwh/dx/db are batched post-scan
+        # matmuls — one serial matmul (du @ wh.T) on the chain
+        def bwd_body(dh_next, step):
+            g_t, hp, g3, un = step
+            z, r = g3[..., :H], g3[..., H:2 * H]
+            n = g3[..., 2 * H:]
+            dh = g_t + dh_next
+            dz_gate = dh * (hp - n)
+            dn_pre = dh * (1.0 - z) * (1.0 - n * n)
+            dr = dn_pre * un
+            dun = dn_pre * r
+            daz = dz_gate * z * (1.0 - z)
+            dar = dr * r * (1.0 - r)
+            da = jnp.concatenate([daz, dar, dn_pre], axis=-1)
+            du = jnp.concatenate([daz, dar, dun], axis=-1)
+            dh_prev = dh * z + kernels.matmul(du, wh.T)
+            return dh_prev, (da, du)
 
-            # scan emits (da, du) per step; dwx/dwh/dx/db are batched
-            # post-scan matmuls — one serial matmul (du @ wh.T) on the
-            # chain
-            def bwd_body(dh_next, step):
-                g_t, hp, g3, un = step
-                z, r = g3[..., :H], g3[..., H:2 * H]
-                n = g3[..., 2 * H:]
-                dh = g_t + dh_next
-                dz_gate = dh * (hp - n)
-                dn_pre = dh * (1.0 - z) * (1.0 - n * n)
-                dr = dn_pre * un
-                dun = dn_pre * r
-                daz = dz_gate * z * (1.0 - z)
-                dar = dr * r * (1.0 - r)
-                da = jnp.concatenate([daz, dar, dn_pre], axis=-1)
-                du = jnp.concatenate([daz, dar, dun], axis=-1)
-                dh_prev = dh * z + kernels.matmul(du, wh.T)
-                return dh_prev, (da, du)
-
-            dh0, (das, dus) = jax.lax.scan(
-                bwd_body, zeros_bh, (gt, hprev, gates, un_s),
-                reverse=not reverse)
+        dh0, (das, dus) = jax.lax.scan(
+            bwd_body, zeros_bh, (gt, hprev, gates, un_s),
+            reverse=not reverse)
         da_flat = das.reshape(T * B, 3 * H)
         du_flat = dus.reshape(T * B, 3 * H)
         dxs = kernels.matmul(da_flat, wx.T).reshape(T, B, D)

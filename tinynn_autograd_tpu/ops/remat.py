@@ -1,12 +1,12 @@
 """Tape-level activation rematerialization (gradient checkpointing).
 
-TPU-native analog of ``jax.checkpoint`` for the tape autodiff: the
+The analog of ``jax.checkpoint`` for the tape autodiff: the
 forward runs the wrapped subgraph once but DISCARDS its tape — and with
 it every intermediate activation — keeping only the output values; the
 backward re-runs the subgraph from its inputs and walks the fresh inner
 tape to produce cotangents. One extra forward pass buys O(depth)
-activation memory, the standard lever on TPU where HBM capacity (not
-FLOPs) binds first for deep stacks and long contexts.
+activation memory, the standard lever where device memory (not FLOPs)
+binds first for deep stacks and long contexts.
 
 The reference has no counterpart: its tape (reference core/ops.py:12-29)
 unconditionally closes every intermediate into the stored ``grad_fn``

@@ -14,8 +14,8 @@ with the logsumexp algebra
 
 which is algebraically the one global softmax over the concatenated row.
 Unlike the exact-concat scheme this never materializes a [T/n, T] score
-block: per hop the kernels hold one [bq, bk] tile in VMEM (Pallas) or a
-transient [T/n, T/n] chunk (XLA fallback), and across hops only the
+block: per hop the kernels hold one [bq, bk] tile on chip (Triton) or a
+transient [T/n, T/n] chunk (XLA twin), and across hops only the
 O(T/n · d) running outputs persist — the true blockwise ring-attention
 memory profile (Liu et al.'s ring attention; here with the flash kernels'
 recompute backward per hop).

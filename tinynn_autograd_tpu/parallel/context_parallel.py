@@ -3,7 +3,7 @@
 Shards the SEQUENCE across devices (params replicated): each device holds
 its queries and its K/V chunk for the local T/n rows, and the K/V chunks
 rotate around the ring via ``ppermute`` — n-1 hops per attention, the
-classic ring-attention communication topology over ICI.
+classic ring-attention communication topology.
 
 The default mode ("ring") is BLOCKWISE ring attention
 (ops/ring_attention.py): each arriving K/V chunk is consumed by the

@@ -1,13 +1,13 @@
-"""Data parallelism: batch-sharded fused train step with gradient psum over
-ICI (driver config #5; the reference is strictly single-device, SURVEY.md
-§2.2).
+"""Data parallelism: batch-sharded fused train step with a gradient pmean
+across devices (the reference is strictly single-device, SURVEY.md §2.2).
 
 Design: ``shard_map`` over a 1-D mesh. Each device runs the SAME fused
 forward + tape-backward + optimizer program (see nn/model.py) on its batch
 shard; the only cross-device traffic is one ``pmean`` of the gradient pytree
-(XLA lowers it to an ICI all-reduce) between the tape walk and the optimizer
-update, plus a scalar pmean for the reported loss. Params and optimizer state
-are replicated, stay resident in HBM, and are donated across steps.
+(XLA lowers it to an all-reduce, NCCL on GPUs) between the tape walk and the
+optimizer update, plus a scalar pmean for the reported loss. Params and
+optimizer state are replicated, stay resident in device memory, and are
+donated across steps.
 
 Because each shard's loss divides by the LOCAL batch size, pmean of the shard
 gradients equals the gradient of the global-mean loss — training is
@@ -114,7 +114,7 @@ class DataParallel:
                     micro, 0, (xm, ym, jnp.arange(k)))
                 grads = jax.tree.map(lambda g: jnp.mean(g, axis=0), gstack)
                 loss_local = jnp.mean(losses)
-            # the one collective: gradient all-reduce over ICI
+            # the one collective: gradient all-reduce
             grads = jax.tree.map(
                 lambda g: jax.lax.pmean(g, axis_name=axis), grads)
             steps, new_opt_state = optimizer.update(grads, params, opt_state)
@@ -176,31 +176,21 @@ class DataParallel:
         self.net.bind_params(self._params)
         return loss
 
-    def train_epoch(self, x_all, y_all, batch_size=128, shuffle=True,
-                    fused=False):
+    def train_epoch(self, x_all, y_all, batch_size=128, shuffle=True):
         """One full data-parallel epoch as ONE dispatch: each device locally
         shuffles and scans the fused step over ITS shard of the dataset,
-        pmean-ing gradients over ICI every step. ``batch_size`` is the
-        GLOBAL batch. Returns the per-step global-mean loss trace."""
+        pmean-ing gradients every step. ``batch_size`` is the GLOBAL
+        batch. Returns the per-step global-mean loss trace."""
         return self.train_epochs(x_all, y_all, n_epochs=1,
-                                 batch_size=batch_size, shuffle=shuffle,
-                                 fused=fused)[0]
+                                 batch_size=batch_size, shuffle=shuffle)[0]
 
     def train_epochs(self, x_all, y_all, n_epochs, batch_size=128,
-                     shuffle=True, fused=False):
+                     shuffle=True):
         """``n_epochs`` data-parallel epochs as ONE dispatch (outer
         lax.scan over per-epoch shuffle keys around the sharded epoch
-        body — the DP analog of Model.train_epochs). Returns the loss
-        trace [n_epochs, n_steps].
-
-        ``fused``: False (default) scans the per-step tape program with a
-        gradient ``pmean`` between backward and update. True / "auto"
-        promote eligible models to the DATA-PARALLEL MEGAKERNEL
-        (ops/fused_epoch.py with ``axis_name``): the whole per-device
-        epoch is ONE Pallas kernel whose per-step gradient all-reduce is
-        an in-kernel RDMA ring — gradients never leave the kernel. "auto"
-        requires TPU; True forces it (distributed-interpret simulation
-        off-TPU, for tests)."""
+        body — the DP analog of Model.train_epochs): the per-step tape
+        program with a gradient ``pmean`` between backward and update.
+        Returns the loss trace [n_epochs, n_steps]."""
         x_all = jnp.asarray(x_all.data if isinstance(x_all, Tensor) else x_all)
         y_all = jnp.asarray(y_all.data if isinstance(y_all, Tensor) else y_all)
         if x_all.shape[0] % self.n_devices or batch_size % self.n_devices:
@@ -219,29 +209,6 @@ class DataParallel:
         local_n = x_all.shape[0] // self.n_devices
         local_batch = batch_size // self.n_devices
         n_steps = local_n // local_batch
-
-        use_mega = False
-        if fused in (True, "auto"):
-            from tinynn_autograd_tpu.ops import fused_epoch
-
-            # comm buffers add 2 param-sized copies to the VMEM bill
-            eligible = fused_epoch.supports(
-                self.net, self._params, self.model.optimizer,
-                extra_state_copies=(
-                    3 + len(self.model.optimizer.slot_names)))
-            if fused is True:
-                if not eligible:
-                    raise ValueError(
-                        "fused=True: model not eligible for the DP "
-                        "megakernel (unsupported layers or over the "
-                        "VMEM budget)")
-                use_mega = True
-            else:
-                use_mega = eligible and jax.default_backend() == "tpu"
-        if use_mega:
-            return self._train_epochs_mega(x_all, y_all, n_epochs,
-                                           batch_size, shuffle,
-                                           local_n, local_batch, n_steps)
 
         key = ("dp_epochs", int(n_epochs), batch_size, bool(shuffle),
                x_all.shape[0], x_all.shape[1:], y_all.shape[1:])
@@ -311,95 +278,6 @@ class DataParallel:
                 check_vma=False,
             )
             self.model.set_phase("TRAIN")
-            self._epoch_fns[key] = jax.jit(sharded, donate_argnums=(0, 1))
-
-        x_all = self._place(x_all)
-        y_all = self._place(y_all)
-        rng = seeder.next_key()
-        self._params, self._opt_state, losses = self._epoch_fns[key](
-            self._params, self._opt_state, x_all, y_all, rng)
-        self.net.bind_params(self._params)
-        return losses
-
-    def _train_epochs_mega(self, x_all, y_all, n_epochs, batch_size,
-                           shuffle, local_n, local_batch, n_steps):
-        """The data-parallel megakernel tier: per device, each epoch is ONE
-        Pallas kernel (params + optimizer state pinned in VMEM across all
-        steps) whose per-step gradient all-reduce is an in-kernel RDMA
-        ring — see ops/fused_epoch.py. Off-TPU the ring is simulated by
-        Pallas's distributed TPU interpret mode."""
-        from jax.experimental.pallas import tpu as pltpu
-
-        from tinynn_autograd_tpu.ops import fused_epoch
-
-        interpret = (pltpu.InterpretParams()
-                     if jax.default_backend() != "tpu" else False)
-        key = ("dp_mega", int(n_epochs), batch_size, bool(shuffle),
-               x_all.shape[0], x_all.shape[1:], y_all.shape[1:],
-               interpret is not False)
-        if not hasattr(self, "_epoch_fns"):
-            self._epoch_fns = {}
-        if key not in self._epoch_fns:
-            leaves, treedef = jax.tree.flatten(self._params)
-            leaf_shapes = [tuple(l.shape) for l in leaves]
-            slot_names = self.model.optimizer.slot_names
-            nl = len(leaf_shapes)
-            axis = self.axis_name
-            feat = x_all.shape[1:]
-            label_feat = y_all.shape[1:]
-            batch_shape = (local_batch,) + tuple(feat)
-            label_shape = (local_batch,) + tuple(label_feat)
-            self.model.set_phase("TRAIN")
-            epoch_fn = fused_epoch.build_fused_epoch(
-                self.net, self.model.loss, self.model.optimizer, treedef,
-                leaf_shapes, n_steps, batch_shape, label_shape,
-                interpret=interpret, axis_name=axis,
-                n_devices=self.n_devices)
-
-            def local_run(params, opt_state, xs, ys, rng):
-                rng = jax.random.fold_in(rng, jax.lax.axis_index(axis))
-
-                def epoch_body(carry, ekey):
-                    params, opt_state = carry
-                    if shuffle:
-                        perm = jax.random.permutation(ekey, local_n)
-                        perm = perm[: n_steps * local_batch]
-                    else:
-                        perm = jnp.arange(n_steps * local_batch)
-                    xb = xs[perm].reshape((n_steps,) + batch_shape)
-                    yb = ys[perm].reshape((n_steps,) + label_shape)
-                    p_leaves = treedef.flatten_up_to(params)
-                    s_leaves = [
-                        leaf for name in slot_names
-                        for leaf in treedef.flatten_up_to(
-                            opt_state["slots"][name])
-                    ]
-                    t0 = opt_state["t"].astype(jnp.int32).reshape(1, 1)
-                    new_p, new_s, new_t, losses = epoch_fn(
-                        p_leaves, s_leaves, t0, xb, yb)
-                    new_params = jax.tree.unflatten(treedef, new_p)
-                    new_slots = {
-                        name: jax.tree.unflatten(
-                            treedef, new_s[si * nl:(si + 1) * nl])
-                        for si, name in enumerate(slot_names)
-                    }
-                    new_opt = {"t": new_t.reshape(()), "slots": new_slots}
-                    return (new_params, new_opt), losses
-
-                keys = jax.random.split(rng, n_epochs)
-                (params, opt_state), losses = jax.lax.scan(
-                    epoch_body, (params, opt_state), keys)
-                # per-device losses are local shard means; report the
-                # global mean like the scanned DP path
-                return params, opt_state, jax.lax.pmean(losses, axis)
-
-            sharded = jax.shard_map(
-                local_run, mesh=self.mesh,
-                in_specs=(P(), P(), P(self.axis_name), P(self.axis_name),
-                          P()),
-                out_specs=(P(), P(), P()),
-                check_vma=False,
-            )
             self._epoch_fns[key] = jax.jit(sharded, donate_argnums=(0, 1))
 
         x_all = self._place(x_all)

@@ -1,10 +1,11 @@
 """Device mesh helpers.
 
 The reference has no parallelism of any kind (SURVEY.md §2.2: no collective
-library, single process). The TPU-native communication backend is JAX's
-collectives over ICI: build a ``jax.sharding.Mesh``, annotate shardings, and
-let XLA route psum/all-gather over the interconnect (same API spans DCN
-across slices).
+library, single process). The communication backend is JAX's collectives:
+build a ``jax.sharding.Mesh``, annotate shardings, and let XLA lower
+psum/all-gather/all-to-all to the devices' collective library (NCCL on
+GPUs). The cards of one host reach each other all to all at the same rate,
+so a mesh's axes are laid out by the algorithm alone.
 """
 
 import numpy as np
@@ -25,9 +26,8 @@ def make_mesh(n_devices=None, axis_name="data", devices=None):
 
 
 def make_mesh_2d(shape, axis_names=("data", "model"), devices=None):
-    """2-D mesh, e.g. shape=(2, 4) for 2-way data x 4-way model parallelism.
-    Lay the fastest-communicating axis innermost so its collectives ride
-    adjacent ICI links."""
+    """2-D mesh, e.g. shape=(2, 4) for 2-way data x 4-way model
+    parallelism."""
     if devices is None:
         devices = jax.devices()
     n = shape[0] * shape[1]

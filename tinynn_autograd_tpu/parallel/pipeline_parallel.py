@@ -2,7 +2,7 @@
 
 The deep-MLP body is partitioned into S contiguous stages, one per mesh
 device; microbatches flow through the pipeline with activations handed to
-the next stage by ``ppermute`` over ICI. The key design point: NO separate
+the next stage by ``ppermute``. The key design point: NO separate
 backward schedule is written. The whole tick loop is a single tape
 primitive (``ops.pipeline_scan_``) whose hand VJP is the mirrored reverse
 scan — cotangents re-cross the same ppermute links in reverse — and the

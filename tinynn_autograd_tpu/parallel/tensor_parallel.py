@@ -7,7 +7,7 @@ layers are split across the mesh in column/row pairs —
   holds W[:, shard] and computes its slice of the activations (no
   communication; the following elementwise activation applies per-shard);
 - row-parallel layer: W [H, D'] split on the INPUT dim -> each device
-  contracts its activation shard and a ``psum`` over ICI reassembles the
+  contracts its activation shard and a ``psum`` reassembles the
   output.
 
 One all-reduce per layer PAIR in forward, and (by symmetry of the VJPs) one

@@ -4,7 +4,7 @@
 keeps the device free) and yields ``Batch(inputs, targets)`` namedtuples
 (reference contract: utils/data_iterator.py:7-34).
 
-TPU addition: ``drop_last`` — under jit, every distinct batch shape compiles
+Addition: ``drop_last`` — under jit, every distinct batch shape compiles
 a separate XLA program, so dropping the ragged final batch keeps the whole
 epoch on ONE compiled train step. Default False for reference parity.
 """
@@ -65,8 +65,8 @@ class PrefetchIterator(BaseIterator):
     in eager training loops). ``depth`` batches are buffered in a queue.
 
     No reference counterpart (the reference prepares every batch inline on
-    the hot path, utils/data_iterator.py:22-34 there). The TPU one-dispatch
-    paths don't need this — data is staged to HBM once — but the
+    the hot path, utils/data_iterator.py:22-34 there). The one-dispatch
+    paths don't need this — data is staged to device memory once — but the
     reference-style per-batch loop benefits on slow hosts.
     """
 

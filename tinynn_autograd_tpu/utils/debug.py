@@ -1,4 +1,4 @@
-"""Numerical debugging — the TPU-native analog of the sanitizer column in
+"""Numerical debugging — the JAX analog of the sanitizer column in
 SURVEY.md §5: jit-vs-eager cross-checks and NaN/Inf guards (the failure
 modes compiled numerics actually have; there are no data races to detect in
 an SPMD program).

@@ -1,4 +1,4 @@
-"""Profiling helpers — the TPU-native answer to the reference's wall-clock
+"""Profiling helpers — the device-side answer to the reference's wall-clock
 Timer (see SURVEY.md §5 "tracing/profiling").
 
 ``trace(logdir)`` wraps a block in a jax.profiler trace (view in
@@ -15,7 +15,7 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(logdir="/tmp/tinynn_tpu_trace"):
+def trace(logdir="/tmp/tinynn_trace"):
     jax.profiler.start_trace(logdir)
     try:
         yield logdir

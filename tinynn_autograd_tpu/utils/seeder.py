@@ -1,7 +1,7 @@
 """Global seeding: numpy RNG + a jax PRNG key stream.
 
-TPU-native extension of the reference seeder (reference: utils/seeder.py:6-11):
-on TPU, randomness is counter-based (threefry keys), so ``random_seed`` both
+Extension of the reference seeder (reference: utils/seeder.py:6-11): under
+JAX, randomness is counter-based (threefry keys), so ``random_seed`` both
 seeds numpy (host-side shuffling) and resets a global key from which
 initializers and dropout split fresh subkeys.
 """

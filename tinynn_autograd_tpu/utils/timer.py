@@ -3,7 +3,7 @@
 start/pause/stop/report with a recorded duration list; ``duration`` is the
 running total, ``count`` the number of completed start→stop spans. For
 device-side timing prefer utils/profiler (jax.profiler traces) — wall clock
-around dispatches measures the host, not the TPU.
+around dispatches measures the host, not the device.
 """
 
 import time
